@@ -6,7 +6,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build the CUDA kernels from hal_tpu_torch/csrc with nvcc (sm_90a);
   2. each kernel against its plain PyTorch version on the card, exact
-     integer equality, and both timed at the main path's shapes;
+     integer equality (the scans also at their tile edges, on wrapping
+     sums, INT32_MIN/MAX, reused state, a second stream and in place),
+     and both timed at the main path's shapes;
   3. the batched liftover path at bench scale (bench.py's fixture: 10
      genomes of >= 2^20 segments, 2.3-2.6 Gb, 2^20 intervals of 1-199 bp):
      map-only and map + runs + wire + decode rates over 10 batches, the
@@ -88,19 +90,20 @@ def device_ms(fn, iters: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not e.key.startswith("Activity Buffer")),
-                  key=lambda r: -r[1])
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    return sum(ms for _, ms in rows), rows
+    for _ in range(3):  # a profile now and then comes back without events
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not e.key.startswith("Activity Buffer")),
+                      key=lambda r: -r[1])
+        if rows:
+            return sum(ms for _, ms in rows), rows
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def paired_ms(kernel_fn, plain_fn):
@@ -166,7 +169,11 @@ def phase_kernels(dev) -> dict:
                               np.searchsorted(grid, q, side="right")):
             raise AssertionError("searchsorted_right != numpy at grid %d" % n)
 
-    for n in (1, 1000, 65537, 1310720):
+    tile = K._scan_binding()[1]
+    # the tile's edges; 33 tiles and more behind a late tile slide the
+    # look-back window more than once
+    for n in (1, 1000, 65537, tile - 1, tile, tile + 1, 2 * tile + 1,
+              33 * tile + 5, 1310720, (1 << 24) + 3):
         x = rng.integers(0, 8, n).astype(np.int32)
         x[::7] = rng.integers(-1000, 1000, len(x[::7]))
         x_t = torch.from_numpy(x).to(dev)
@@ -183,6 +190,8 @@ def phase_kernels(dev) -> dict:
         if not np.array_equal(K.cummax_i32(y_t).cpu().numpy(),
                               np.maximum.accumulate(y)):
             raise AssertionError("cummax_i32 != numpy at length %d" % n)
+
+    scan_edge_cases(K, dev, rng, check)
 
     # times at the main path's shapes: a 65,536-entry grid (the kernel's
     # limit) against one query per slot of a bench-scale level capacity
@@ -212,6 +221,85 @@ def phase_kernels(dev) -> dict:
                      "ms": k_ms, "plain_ms": p_ms, "shape": shape}
     log("phase 2 kernels: all equal to their plain versions")
     return rec
+
+
+def scan_edge_cases(K, dev, rng, check) -> None:
+    """The single-pass scan at its edges: sums that wrap past +-2^31,
+    INT32_MIN / INT32_MAX, a random int32 input at the tile's edges, a
+    misaligned input, 200 back-to-back calls on reused status state, an
+    epoch wrap, a second stream and in-place calls; each result equal to
+    the plain version (and numpy where stated)."""
+    import torch
+
+    def both(x):
+        x_t = torch.from_numpy(x).to(dev)
+        return x_t, K.cumsum_i32_plain(x_t), K.cummax_i32_plain(x_t)
+
+    n = 1310720
+    wrap = np.full(n, 1 << 30, np.int32)  # crosses +-2^31 every 2-4 items
+    wrap[::3] = -(1 << 30) - 7
+    w_t, w_sum, _ = both(wrap)
+    check("cumsum_i32", K.cumsum_i32(w_t), w_sum, "wrap-around length %d" % n)
+    if not np.array_equal(K.cumsum_i32(w_t).cpu().numpy(),
+                          np.cumsum(wrap, dtype=np.int32)):
+        raise AssertionError("cumsum_i32 wrap-around != numpy")
+    ext = rng.integers(-5, 5, n).astype(np.int32)
+    ext[rng.random(n) < 0.01] = np.iinfo(np.int32).min
+    ext[:3] = np.iinfo(np.int32).min
+    ext[n // 2] = np.iinfo(np.int32).max
+    e_t, _, e_max = both(ext)
+    check("cummax_i32", K.cummax_i32(e_t), e_max, "INT32_MIN/MAX length %d" % n)
+    if not np.array_equal(K.cummax_i32(e_t).cpu().numpy(),
+                          np.maximum.accumulate(ext)):
+        raise AssertionError("cummax_i32 INT32_MIN/MAX != numpy")
+
+    t = K._scan_binding()[1]
+    for m in (t - 1, t, t + 1, 2 * t + 1):
+        x_t, c, mx = both(rng.integers(-1 << 31, 1 << 31, m,
+                                       dtype=np.int64).astype(np.int32))
+        check("cumsum_i32", K.cumsum_i32(x_t), c, "int32 range, length %d" % m)
+        check("cummax_i32", K.cummax_i32(x_t), mx, "int32 range, length %d" % m)
+    x_t, c, mx = both(rng.integers(-9, 9, 65537).astype(np.int32))
+    check("cumsum_i32", K.cumsum_i32(x_t[1:]), K.cumsum_i32_plain(x_t[1:]),
+          "misaligned")
+    check("cummax_i32", K.cummax_i32(x_t[1:]), K.cummax_i32_plain(x_t[1:]),
+          "misaligned")
+
+    cases = [both(rng.integers(-1000, 1000, m).astype(np.int32))
+             for m in (1, 777, 5000, 65536, 1310720)]
+    for i in range(200):  # reused state: a stale epoch or counter shows here
+        x_t, c, mx = cases[i % len(cases)]
+        if i % 2:
+            got, want, name = K.cumsum_i32(x_t), c, "cumsum_i32"
+        else:
+            got, want, name = K.cummax_i32(x_t), mx, "cummax_i32"
+        if not torch.equal(got, want):
+            raise AssertionError("%s call %d of 200 on reused state, length "
+                                 "%d: kernel != plain" % (name, i, len(x_t)))
+    log("  cumsum_i32 / cummax_i32 200 back-to-back calls: equal to plain")
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    K._scan_states[key][2] = K._EPOCH_END - 3
+    for i in range(6):  # crosses the epoch limit: the state is re-zeroed
+        x_t, c, mx = cases[i % len(cases)]
+        check("cumsum_i32", K.cumsum_i32(x_t), c, "epoch wrap %d" % i)
+
+    side = torch.cuda.Stream(dev)
+    x_t, c, mx = cases[-1]
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = [(K.cumsum_i32(x_t), K.cummax_i32(x_t)) for _ in range(3)]
+    main = K.cumsum_i32(x_t)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for gs, gm in got:
+        check("cumsum_i32", gs, c, "second stream")
+        check("cummax_i32", gm, mx, "second stream")
+    check("cumsum_i32", main, c, "default stream beside the second")
+
+    for name, want in (("cumsum_i32", c), ("cummax_i32", mx)):
+        y = x_t.clone()
+        if K._scan_cuda(name, y, out=y).data_ptr() != y.data_ptr():
+            raise AssertionError("%s in place: wrote elsewhere" % name)
+        check(name, y, want, "in place, length %d" % len(y))
 
 
 def build_bench_alignment():

@@ -85,9 +85,10 @@ def library() -> ctypes.CDLL:
         lib.hal_searchsorted_right_i32.restype = ctypes.c_int
         for name in ("hal_cumsum_i32", "hal_cummax_i32"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, ll, vp, vp]
+            fn.argtypes = [vp, vp, ll, vp, ctypes.c_ulonglong, ctypes.c_uint,
+                           vp]
             fn.restype = ctypes.c_int
-        lib.hal_scan_scratch_words.argtypes = [ll]
-        lib.hal_scan_scratch_words.restype = ll
+        lib.hal_scan_tile.argtypes = []
+        lib.hal_scan_tile.restype = ll
         _lib = lib
     return _lib

@@ -13,6 +13,8 @@ through the kernel; reset_launches() sets them all to 0.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 
@@ -82,17 +84,68 @@ def cummax_i32_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.cummax(x, 0).values
 
 
-def _scan_cuda(name: str, x: torch.Tensor) -> torch.Tensor:
-    from hal_tpu_torch.ops._build import library
+_EPOCH_END = 1 << 30  # epochs live in 30 bits of a status word
+# per (device index, stream): [status buffer, tiles consumed, last epoch]
+_scan_states: dict = {}
+# calls hold the lock from reserving tiles to the launch, so that on each
+# stream the launches come in the order their tile ranges were reserved
+_scan_lock = threading.Lock()
+_scan_bound = None
 
-    lib = library()
-    out = torch.empty_like(x)
-    scratch = torch.empty(lib.hal_scan_scratch_words(x.shape[0]),
-                          dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = getattr(lib, "hal_" + name)(x.data_ptr(), out.data_ptr(),
-                                          x.shape[0], scratch.data_ptr(),
-                                          _stream(x))
+
+def _scan_binding():
+    """The scan entries of the kernel library and its tile size, looked up
+    once."""
+    global _scan_bound
+    if _scan_bound is None:
+        from hal_tpu_torch.ops._build import library
+
+        lib = library()
+        _scan_bound = ({"cumsum_i32": lib.hal_cumsum_i32,
+                        "cummax_i32": lib.hal_cummax_i32}, lib.hal_scan_tile())
+    return _scan_bound
+
+
+def _scan_cuda(name: str, x: torch.Tensor,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the single-pass scan `name` of x into out (a new tensor unless
+    given; may be x itself) on the current stream.  Counts no launch: the
+    public wrappers do.
+
+    The kernel's status words and tile counter live in one int64 buffer per
+    (device, stream), zeroed when allocated and never cleared between
+    calls: each call gets the next epoch and the number of tiles that the
+    calls before it consumed (csrc/scan.cu)."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _scan_cuda(name, x, out)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("%s: the scan's tile counter cannot be captured "
+                           "in a CUDA graph" % name)
+    fns, tile = _scan_binding()
+    n = x.shape[0]
+    tiles = -(-n // tile)
+    if out is None:
+        out = torch.empty_like(x)
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # which costs more host time per call than all the rest of this wrapper
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    key = (x.device.index, stream)
+    with _scan_lock:
+        state = _scan_states.get(key)
+        if state is None or state[0].shape[0] <= tiles:
+            words = 1 << max(10, tiles.bit_length())  # > tiles: counter + words
+            state = _scan_states[key] = [
+                torch.zeros(words, dtype=torch.int64, device=x.device), 0, 0]
+        elif state[2] + 1 == _EPOCH_END:
+            state[0].zero_()
+            state[1] = state[2] = 0
+        state[2] += 1
+        err = fns[name](x.data_ptr(), out.data_ptr(), n, state[0].data_ptr(),
+                        state[1], state[2], stream)
+        if err:
+            del _scan_states[key]
+        state[1] += tiles
     _raise_on(name, err)
     return out
 

@@ -14,6 +14,10 @@ from hal_tpu_torch.ops import kernels as K
 from hal_tpu_torch.ops import segmap_torch as st
 
 LENGTHS = [1, 2, 7, 1000, 2048, 2049, 65537]
+# the CUDA scan's tile: kThreads x kItems = 256 x 64 elements (csrc/scan.cu)
+SCAN_TILE = 16384
+TILE_EDGES = [SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 2 * SCAN_TILE + 1]
+I32 = np.iinfo(np.int32)
 
 
 def _grid_and_queries(rng, n, nq, lo=-(1 << 30), hi=1 << 30):
@@ -58,20 +62,34 @@ def test_searchsorted_uint32_bias_equals_jax():
     assert np.array_equal(got.numpy(), np.searchsorted(grid, q, side="right"))
 
 
-@pytest.mark.parametrize("n", LENGTHS)
-def test_scans_plain_equal_numpy_and_jax(n):
-    rng = np.random.default_rng(n)
+def _scan_inputs(rng, n):
+    """(cumsum input, cummax input) pairs at length n: small values; sums
+    that cross +-2^31 every few items; INT32_MIN / INT32_MAX."""
     x = rng.integers(0, 5, n).astype(np.int32)
     x[::5] = rng.integers(-100, 100, len(x[::5]))
     y = rng.integers(-(1 << 31) + 1, (1 << 31) - 1, n).astype(np.int32)
-    cs = K.cumsum_i32(torch.from_numpy(x))
-    cm = K.cummax_i32(torch.from_numpy(y))
-    assert cs.dtype == torch.int32 and cm.dtype == torch.int32
-    assert np.array_equal(cs.numpy(), np.cumsum(x, dtype=np.int32))
-    assert np.array_equal(cm.numpy(), np.maximum.accumulate(y))
-    assert np.array_equal(cs.numpy(), np.asarray(jnp.cumsum(jnp.asarray(x))))
-    assert np.array_equal(cm.numpy(),
-                          np.asarray(jax.lax.cummax(jnp.asarray(y))))
+    wrap = np.full(n, 1 << 30, np.int32)
+    wrap[::3] = -(1 << 30) - 7
+    ext = rng.integers(-5, 5, n).astype(np.int32)
+    ext[rng.random(n) < 0.05] = I32.min
+    ext[:2] = I32.min
+    ext[n // 2] = I32.max
+    return (x, y), (wrap, ext)
+
+
+@pytest.mark.parametrize("n", LENGTHS + TILE_EDGES)
+def test_scans_plain_equal_numpy_and_jax(n):
+    rng = np.random.default_rng(n)
+    for x, y in _scan_inputs(rng, n):
+        cs = K.cumsum_i32(torch.from_numpy(x))
+        cm = K.cummax_i32(torch.from_numpy(y))
+        assert cs.dtype == torch.int32 and cm.dtype == torch.int32
+        assert np.array_equal(cs.numpy(), np.cumsum(x, dtype=np.int32))
+        assert np.array_equal(cm.numpy(), np.maximum.accumulate(y))
+        assert np.array_equal(cs.numpy(), np.asarray(
+            jnp.cumsum(jnp.asarray(x), dtype=jnp.int32)))
+        assert np.array_equal(cm.numpy(),
+                              np.asarray(jax.lax.cummax(jnp.asarray(y))))
 
 
 def test_wrappers_check_inputs():
@@ -120,8 +138,28 @@ def test_cuda_kernels_equal_plain():
         assert torch.equal(K.searchsorted_right(g_t, q_t),
                            K.searchsorted_right_plain(g_t, q_t))
         assert K.searchsorted_right.launches == before + 1
-    for n in LENGTHS + [1310720]:
+    for n in LENGTHS + TILE_EDGES + [33 * SCAN_TILE + 5, 1310720]:
         x = torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)).to(dev)
         assert torch.equal(K.cumsum_i32(x), K.cumsum_i32_plain(x))
         assert torch.equal(K.cummax_i32(x), K.cummax_i32_plain(x))
+        for a, b in _scan_inputs(rng, n):
+            a_t = torch.from_numpy(a).to(dev)
+            b_t = torch.from_numpy(b).to(dev)
+            assert np.array_equal(K.cumsum_i32(a_t).cpu().numpy(),
+                                  np.cumsum(a, dtype=np.int32))
+            assert np.array_equal(K.cummax_i32(b_t).cpu().numpy(),
+                                  np.maximum.accumulate(b))
+    x = torch.from_numpy(rng.integers(-9, 9, 70001).astype(np.int32)).to(dev)
+    want = K.cumsum_i32_plain(x)
+    for _ in range(200):  # reused status state
+        assert torch.equal(K.cumsum_i32(x), want)
+    y = x.clone()
+    K._scan_cuda("cumsum_i32", y, out=y)  # in place
+    assert torch.equal(y, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = K.cumsum_i32(x)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, want)
     torch.cuda.synchronize()
