@@ -6,20 +6,27 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. build the CUDA kernels from hal_tpu_torch/csrc with nvcc (sm_90a);
   2. each kernel against its plain PyTorch version on the card, exact
-     integer equality (the scans also at their tile edges, on wrapping
-     sums, INT32_MIN/MAX, reused state, a second stream and in place),
-     and both timed at the main path's shapes;
+     integer equality (searchsorted at grids around its sector, fence
+     and tree-level edges up to its grid limit, with duplicates, misaligned
+     views, uint32-range int64 queries and a second stream; the scans also at
+     their tile edges, on wrapping sums, INT32_MIN/MAX, reused state, a
+     second stream and in place), each timed in turns against its plain
+     version and one PyTorch library call at the main path's shapes;
   3. the batched liftover path at bench scale (bench.py's fixture: 10
      genomes of >= 2^20 segments, 2.3-2.6 Gb, 2^20 intervals of 1-199 bp):
      map-only and map + runs + wire + decode rates over 10 batches, the
-     fragment count against the host sizing, and 2,048 sampled owners'
-     runs against the host extract_runs;
+     fragment count against the host sizing, 2,048 sampled owners' runs
+     against the host extract_runs, every kernel launched (searchsorted
+     included), and the map and one level's lookup timed with the
+     searchsorted kernel against the paged binary search;
   4. the main path through its entry points, with every kernel's launch
      count set to 0 first: bulk_runs_device at bench scale, then the
      halLiftover CLI (--device cuda --batchSize 16384) on a ~100 Mb
-     alignment whose grids fit the searchsorted kernel; the CLI's bytes
-     must equal the host hal_tpu halLiftover's, and every kernel must have
-     launched.
+     alignment; the CLI's bytes must equal the same CLI's on --device cpu
+     (the plain kernel versions), and every kernel must have launched.
+
+Everything runs on hal_tpu_torch alone: its host modules (randgen,
+storage, segmap_host, liftover) make the fixtures and the host oracle.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -47,6 +54,11 @@ TIMED_ITERS = 10
 N_SAMPLE_OWNERS = 2048
 CLI_LINES = 1 << 16
 CLI_BATCH = 16384
+
+# H100 SXM data sheet: HBM bytes/s; 32-bit non-tensor operations/s (the
+# float32 rate, the table's rate for 32-bit ALU work)
+HBM_BYTES_PER_S = 3.35e12
+ALU32_OPS_PER_S = 67e12
 
 REPLACES = {
     "searchsorted_right": "hal_tpu/ops/pallas_kernels.py:52",
@@ -106,15 +118,20 @@ def device_ms(fn, iters: int = 20):
     raise AssertionError("torch.profiler recorded no device time")
 
 
-def paired_ms(kernel_fn, plain_fn):
-    """Device ms per call of (kernel, plain) from the profiler, and the
-    event-timed ms per call (device timeline incl. host launch gaps), each
-    timed in turns plain, kernel, kernel, plain."""
-    p1, k1, k2, p2 = (device_ms(f)[0] for f in (plain_fn, kernel_fn,
-                                                 kernel_fn, plain_fn))
-    q1, j1, j2, q2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn,
-                                            plain_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2, (j1 + j2) / 2, (q1 + q2) / 2
+def timed_turns(kernel_fn, plain_fn, library_fn) -> dict:
+    """{"kernel" | "plain" | "library": (device ms, event ms)} per call:
+    device ms from the profiler, event ms on the device timeline incl. host
+    launch gaps, each side timed in turns plain, kernel, library, library,
+    kernel, plain and averaged over its two turns."""
+    fns = {"plain": plain_fn, "kernel": kernel_fn, "library": library_fn}
+    order = ("plain", "kernel", "library", "library", "kernel", "plain")
+    dev = {k: 0.0 for k in fns}
+    ev = {k: 0.0 for k in fns}
+    for k in order:
+        dev[k] += device_ms(fns[k])[0] / 2
+    for k in order:
+        ev[k] += time_ms(fns[k]) / 2
+    return {k: (dev[k], ev[k]) for k in fns}
 
 
 def phase_build() -> None:
@@ -151,23 +168,7 @@ def phase_kernels(dev) -> dict:
                                  % (name, what, d))
         log("  %s %s: equal to plain" % (name, what))
 
-    nq = 1 << 20
-    for n in (1, 3000, 65536):
-        grid = np.sort(rng.integers(-(1 << 30), 1 << 30, n)).astype(np.int32)
-        if n > 10:
-            grid[n // 2:n // 2 + 5] = grid[n // 2]  # duplicate entries
-        lo_, hi_ = int(grid[0]), int(grid[-1])
-        q = rng.integers(lo_ - 1000, hi_ + 1000, nq).astype(np.int32)
-        q[:4] = [lo_ - 1, lo_, hi_, hi_ + 1]  # below, at and above the ends
-        q[4:8] = [-(1 << 31), (1 << 31) - 2, 0, -1]
-        g_t = torch.from_numpy(grid).to(dev)
-        q_t = torch.from_numpy(q).to(dev)
-        out = K.searchsorted_right(g_t, q_t)
-        want = K.searchsorted_right_plain(g_t, q_t)
-        check("searchsorted_right", out, want, "grid %d x %d queries" % (n, nq))
-        if not np.array_equal(out.cpu().numpy(),
-                              np.searchsorted(grid, q, side="right")):
-            raise AssertionError("searchsorted_right != numpy at grid %d" % n)
+    searchsorted_edge_cases(K, dev, rng, check)
 
     tile = K._scan_binding()[1]
     # the tile's edges; 33 tiles and more behind a late tile slide the
@@ -193,34 +194,148 @@ def phase_kernels(dev) -> dict:
 
     scan_edge_cases(K, dev, rng, check)
 
-    # times at the main path's shapes: a 65,536-entry grid (the kernel's
-    # limit) against one query per slot of a bench-scale level capacity
-    # (1,310,720), and scans over that capacity
+    # times at the main path's shapes.  cap = one query per slot of a
+    # bench-scale level capacity.  searchsorted: a bench-scale uint32-range
+    # level (1,179,648 segments) with int64 queries, as phase 3 runs it (the
+    # record's shape); a 65,536-entry int32 grid (the old kernel limit); the
+    # CLI cell's ~60k-segment grids with one 16,384-line batch.  Scans: cap.
     cap = 1310720
-    grid = torch.from_numpy(np.sort(rng.integers(0, 1 << 30, 65536))
+    g32 = torch.from_numpy(np.sort(rng.integers(0, 1 << 30, 65536))
+                           .astype(np.int32)).to(dev)
+    q32 = torch.from_numpy(rng.integers(0, 1 << 30, cap)
+                           .astype(np.int32)).to(dev)
+    f32 = K.search_tables(g32)
+    gcli = torch.from_numpy(np.sort(rng.integers(0, 120_000_000, 60000))
                             .astype(np.int32)).to(dev)
-    q = torch.from_numpy(rng.integers(0, 1 << 30, cap).astype(np.int32)).to(dev)
+    qcli = torch.from_numpy(rng.integers(0, 120_000_000, CLI_BATCH)
+                            .astype(np.int32)).to(dev)
+    fcli = K.search_tables(gcli)
+    g64 = torch.from_numpy(np.sort(rng.integers(0, 2_600_000_000,
+                                                1179648))).to(dev)
+    q64 = torch.from_numpy(rng.integers(0, 2_600_000_000, cap)).to(dev)
+    gb = K.bias_u32(g64)
+    fb = K.search_tables(gb)
     counts = torch.from_numpy(rng.integers(0, 3, cap).astype(np.int32)).to(dev)
     marks = torch.from_numpy(np.where(rng.random(cap) < 0.8, 0,
                                       np.arange(cap)).astype(np.int32)).to(dev)
+
+    def ss_bytes(g, q):  # grid read once, queries in, results out
+        return g.numel() * 4 + 2 * q.numel() * q.element_size()
+
+    def ss_ops(g, q):  # one compare per level of a binary search
+        return q.numel() * int(g.numel()).bit_length()
+
     rec = {}
-    for name, kfn, pfn, shape in (
-            ("searchsorted_right", lambda: K.searchsorted_right(grid, q),
-             lambda: K.searchsorted_right_plain(grid, q),
-             "grid 65536, %d queries" % cap),
+    for name, kfn, pfn, lfn, nbytes, ops, shape in (
+            ("searchsorted_right",
+             lambda: K.searchsorted_right_u32(gb, q64, fb),
+             lambda: K.searchsorted_right_u32_plain(gb, q64),
+             lambda: torch.searchsorted(g64, q64, right=True),
+             ss_bytes(gb, q64), ss_ops(gb, q64),
+             "u32 grid 1179648, %d int64 queries" % cap),
+            ("searchsorted_right", lambda: K.searchsorted_right(g32, q32, f32),
+             lambda: K.searchsorted_right_plain(g32, q32),
+             lambda: torch.searchsorted(g32, q32, right=True, out_int32=True),
+             ss_bytes(g32, q32), ss_ops(g32, q32),
+             "grid 65536, %d int32 queries" % cap),
+            ("searchsorted_right",
+             lambda: K.searchsorted_right(gcli, qcli, fcli),
+             lambda: K.searchsorted_right_plain(gcli, qcli),
+             lambda: torch.searchsorted(gcli, qcli, right=True,
+                                        out_int32=True),
+             ss_bytes(gcli, qcli), ss_ops(gcli, qcli),
+             "CLI grid 60000, %d int32 queries" % CLI_BATCH),
             ("cumsum_i32", lambda: K.cumsum_i32(counts),
-             lambda: K.cumsum_i32_plain(counts), "length %d" % cap),
+             lambda: K.cumsum_i32_plain(counts),
+             lambda: torch.cumsum(counts, 0, dtype=torch.int32),
+             8 * cap, cap, "length %d" % cap),
             ("cummax_i32", lambda: K.cummax_i32(marks),
-             lambda: K.cummax_i32_plain(marks), "length %d" % cap)):
-        k_ms, p_ms, k_ev, p_ev = paired_ms(kfn, pfn)
-        log("  time %s (%s): device kernel %.4f ms, plain %.4f ms; "
-            "event-timed incl. launch gaps kernel %.4f ms, plain %.4f ms"
-            % (name, shape, k_ms, p_ms, k_ev, p_ev))
+             lambda: K.cummax_i32_plain(marks),
+             lambda: torch.cummax(marks, 0), 8 * cap, cap,
+             "length %d" % cap)):
+        t = timed_turns(kfn, pfn, lfn)
+        b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        b_ops = ops / ALU32_OPS_PER_S * 1e3
+        bound = max(b_bytes, b_ops)
+        log("  time %s (%s): device kernel %.4f ms, plain %.4f ms, library "
+            "%.4f ms; event-timed incl. launch gaps kernel %.4f ms, plain "
+            "%.4f ms, library %.4f ms; bound %.4f ms (%s), kernel at %.0f%% "
+            "of it" % (name, shape, t["kernel"][0], t["plain"][0],
+                       t["library"][0], t["kernel"][1], t["plain"][1],
+                       t["library"][1], bound,
+                       "bytes" if b_bytes >= b_ops else "operations",
+                       100 * bound / t["kernel"][0]))
+        if name in rec:
+            continue  # the first shape of each kernel is its record's
         rec[name] = {"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "max_abs_err": err[name],
-                     "ms": k_ms, "plain_ms": p_ms, "shape": shape}
+                     "ms": t["kernel"][0], "plain_ms": t["plain"][0],
+                     "bound_ms": bound,
+                     "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                     "library_ms": t["library"][0], "shape": shape}
     log("phase 2 kernels: all equal to their plain versions")
     return rec
+
+
+def searchsorted_edge_cases(K, dev, rng, check) -> None:
+    """The sector B-tree kernel against its plain version (and numpy) at
+    grids around its sector (8) and fence (64) edges, past the old 65,536
+    limit, where the staged tree moves from fences8 to fences64, at a
+    bench-scale grid and at the kernel's grid limit; duplicates across
+    sector and fence edges, exact hits, INT32_MIN, queries below and above
+    the grid, a misaligned view of grid and queries, uint32-range int64
+    queries (out-of-range ones included: masked slots carry them) and a
+    second stream."""
+    import torch
+
+    nq = (1 << 18) + 3
+    side = torch.cuda.Stream(dev)
+    i32 = np.iinfo(np.int32)
+    for n in (1, 7, 8, 9, 63, 64, 65, 3000, 65536, 65537, 262136, 262137,
+              1179648, K.SEARCH_GRID_LIMIT):
+        grid = np.sort(rng.integers(-(1 << 30), 1 << 30, n))
+        gu = np.sort(rng.integers(0, (1 << 32) - 2, n))
+        for e in (8, 64, 512, 4096, n // 2):  # duplicate runs across edges
+            if 3 <= e and e + 5 < n:
+                grid[e - 3:e + 5] = grid[e - 3]
+                gu[e - 3:e + 5] = gu[e - 3]
+        grid = grid.astype(np.int32)
+        lo_, hi_ = int(grid[0]), int(grid[-1])
+        q = rng.integers(lo_ - 1000, hi_ + 1000, nq).astype(np.int32)
+        q[:6] = [lo_ - 1, lo_, hi_, hi_ + 1, i32.min, i32.max - 1]
+        k = min(n, 4096)
+        q[6:6 + k] = grid[:k]  # exact hits, duplicates included
+        g_t = torch.from_numpy(grid).to(dev)
+        q_t = torch.from_numpy(q).to(dev)
+        what = "grid %d x %d queries" % (n, nq)
+        out = K.searchsorted_right(g_t, q_t)
+        check("searchsorted_right", out, K.searchsorted_right_plain(g_t, q_t),
+              what)
+        if not np.array_equal(out.cpu().numpy(),
+                              np.searchsorted(grid, q, side="right")):
+            raise AssertionError("searchsorted_right != numpy, " + what)
+        if n > 1:
+            check("searchsorted_right", K.searchsorted_right(g_t[1:], q_t[1:]),
+                  K.searchsorted_right_plain(g_t[1:], q_t[1:]),
+                  "misaligned views, " + what)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            got = K.searchsorted_right(g_t, q_t)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        check("searchsorted_right", got, out, "second stream, " + what)
+
+        qu = rng.integers(-(1 << 33), 1 << 33, nq)
+        qu[:6] = [-1, 0, (1 << 32) - 1, 1 << 32, gu[0], gu[-1]]
+        qu[6:6 + k] = gu[:k]
+        gb = K.bias_u32(torch.from_numpy(gu).to(dev))
+        qu_t = torch.from_numpy(qu).to(dev)
+        out = K.searchsorted_right_u32(gb, qu_t)
+        check("searchsorted_right", out,
+              K.searchsorted_right_u32_plain(gb, qu_t),
+              "uint32 range, int64 queries, " + what)
+        want = np.searchsorted(gu, np.clip(qu, 0, (1 << 32) - 1), side="right")
+        if not np.array_equal(out.cpu().numpy(), want):
+            raise AssertionError("searchsorted_right_u32 != numpy, " + what)
 
 
 def scan_edge_cases(K, dev, rng, check) -> None:
@@ -303,7 +418,7 @@ def scan_edge_cases(K, dev, rng, check) -> None:
 
 
 def build_bench_alignment():
-    from hal_tpu.randgen import create_random_alignment
+    from hal_tpu_torch.randgen import create_random_alignment
 
     return create_random_alignment(
         seed=7, max_genomes=N_GENOMES, min_genomes=N_GENOMES - 1,
@@ -330,8 +445,8 @@ def pick_pair(aln):
 def host_runs(aln, src, tgt, lo, hi, owners, seq_of):
     """Per sampled owner, the host's (s_lo, s_hi, t_lo, t_hi, rev) runs:
     map_source + atomize + extract_runs, the reference merge semantics."""
-    from hal_tpu.ops import segmap_host as sm
-    from hal_tpu.ops.liftover import extract_runs
+    from hal_tpu_torch.ops import segmap_host as sm
+    from hal_tpu_torch.ops.liftover import extract_runs
 
     out = {}
     for o in owners:
@@ -347,8 +462,8 @@ def host_runs(aln, src, tgt, lo, hi, owners, seq_of):
 def decoded_runs(o, s_lo, s_hi, t_lo, t_hi, rev, own, dupes, seq_of):
     """Owner o's runs from the decoded wire, dupe-flagged owners merged on
     host exactly as bench.py's honesty check does."""
-    from hal_tpu.ops import segmap_host as sm
-    from hal_tpu.ops.liftover import extract_runs
+    from hal_tpu_torch.ops import segmap_host as sm
+    from hal_tpu_torch.ops.liftover import extract_runs
 
     m = own == o
     if not dupes[o]:
@@ -361,6 +476,62 @@ def decoded_runs(o, s_lo, s_hi, t_lo, t_hi, rev, own, dupes, seq_of):
     return sorted((min(f.src_lo for f in run), max(f.src_hi for f in run),
                    run[0].tgt_lo, run[-1].tgt_hi, int(run[0].rev))
                   for run in extract_runs(fr, seq_of))
+
+
+def lookup_vs_paged(st, path, lo_d, hi_d, own_d, caps, F) -> None:
+    """The first level's lookup and the whole map with the searchsorted
+    kernel against the paged binary search that served these levels before
+    (the kernel limit set back to the page limit): device time in turns,
+    and the paged run's fragments equal to the kernel run's."""
+    import torch
+
+    lv = path.levels[0]
+    if lv.page_tab is None or lv.search_tree is None:
+        raise AssertionError("bench-scale level 0 lacks its page table or "
+                             "its search tables")
+    got = st._lookup(lv, lo_d)
+    if not torch.equal(got, st._paged_searchsorted(lv.grid, lo_d, lv.page_tab,
+                                                   lv.page_shift)):
+        raise AssertionError("bench-scale lookup: kernel != paged search")
+    t = timed_turns(
+        lambda: st._lookup(lv, lo_d),
+        lambda: st._paged_searchsorted(lv.grid, lo_d, lv.page_tab,
+                                       lv.page_shift),
+        lambda: torch.searchsorted(lv.grid, lo_d, right=True))
+    log("  lookup, level 0 (grid %d, %d int64 queries): device kernel %.4f "
+        "ms, paged chain %.4f ms, torch.searchsorted %.4f ms; event-timed "
+        "kernel %.4f ms, paged chain %.4f ms"
+        % (lv.grid.numel(), lo_d.numel(), t["kernel"][0], t["plain"][0],
+           t["library"][0], t["kernel"][1], t["plain"][1]))
+
+    limit = st._KERNEL_GRID_LIMIT
+
+    def run_paged():
+        st._KERNEL_GRID_LIMIT = st._PAGE_GRID_LIMIT
+        try:
+            return st._run_path(path, lo_d, hi_d, own_d, caps)
+        finally:
+            st._KERNEL_GRID_LIMIT = limit
+
+    Fp = run_paged()[0]
+    v = F[st.C_VALID] > 0
+    if not (torch.equal(Fp[st.C_VALID] > 0, v) and torch.equal(Fp[:, v],
+                                                               F[:, v])):
+        raise AssertionError("map with the paged search != map with the "
+                             "searchsorted kernel")
+    runs = {"paged": run_paged,
+            "kernel": lambda: st._run_path(path, lo_d, hi_d, own_d, caps)}
+    ms = {"paged": [], "kernel": []}
+    for k in ("paged", "kernel", "kernel", "paged"):
+        total, rows = device_ms(runs[k], iters=3)
+        ms[k].append(total)
+        log("  profile map, lookups by %s: %.3f ms device/batch; top: %s"
+            % (k, total, "; ".join("%s %.3f" % (n[:50], m)
+                                   for n, m in rows[:5])))
+    log("  map device ms/batch, in turns paged, kernel, kernel, paged: %s; "
+        "paged chain %.3f -> searchsorted kernel %.3f"
+        % ([round(x, 4) for x in ms["paged"][:1] + ms["kernel"]
+            + ms["paged"][1:]], sum(ms["paged"]) / 2, sum(ms["kernel"]) / 2))
 
 
 def phase_bench_scale(dev):
@@ -421,8 +592,11 @@ def phase_bench_scale(dev):
     counts = K.launches()
     log("  first run: %d fragments == host final, %d runs, launches %s"
         % (n_frag, int(total.item()), counts))
-    if counts["cumsum_i32"] == 0 or counts["cummax_i32"] == 0:
-        raise AssertionError("scan kernels not launched: %s" % counts)
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError("kernel %s not launched at bench scale: %s"
+                                 % (name, counts))
+    lookup_vs_paged(st, path, lo_d, hi_d, own_d, caps, F)
 
     def seq_of(p):
         return int(np.searchsorted(tg.seq_start, p, side="right")) - 1
@@ -481,10 +655,10 @@ def phase_bench_scale(dev):
 
 def cli_fixture(tmp: str):
     """~100 Mb genomes of 40-60k ~2 kb segments (int32 coordinates, grids
-    within the searchsorted kernel's 65,536 limit) saved as halz, and a
+    within the old 65,536 kernel limit, as before) saved as halz, and a
     BED3 file of CLI_LINES sorted, disjoint 1-199 bp intervals."""
-    from hal_tpu.randgen import create_random_alignment
-    from hal_tpu.storage import save_alignment
+    from hal_tpu_torch.randgen import create_random_alignment
+    from hal_tpu_torch.storage import save_alignment
 
     aln = create_random_alignment(
         seed=11, max_genomes=10, min_genomes=8, mean_degree=1.5,
@@ -530,6 +704,7 @@ def phase_main_path(dev, bench, tmp) -> dict:
                            device=dev)
     torch.cuda.synchronize()
     t_bulk = time.perf_counter() - t0
+    bulk_counts = K.launches()
     t0 = time.perf_counter()
     port_cli.run([hal, src2, bed, tgt2, out_port, "--batchSize",
                   str(CLI_BATCH), "--device", "cuda"])
@@ -537,7 +712,9 @@ def phase_main_path(dev, bench, tmp) -> dict:
     t_cli = time.perf_counter() - t0
     counts = K.launches()
     log("phase 4 main path: bulk_runs_device %.1fs, halLiftover --device "
-        "cuda %.1fs; launches %s" % (t_bulk, t_cli, counts))
+        "cuda %.1fs; launches %s (bulk_runs_device %s, the CLI %s)"
+        % (t_bulk, t_cli, counts, bulk_counts,
+           {k: c - bulk_counts[k] for k, c in counts.items()}))
     for name, c in counts.items():
         if c <= 0:
             raise AssertionError("kernel %s was not launched on the main "
@@ -557,21 +734,24 @@ def phase_main_path(dev, bench, tmp) -> dict:
     log("  bulk_runs_device: %d runs; %d sampled owners equal host "
         "extract_runs" % (len(ro), len(bench["sample"])))
 
-    out_host = os.path.join(tmp, "host.bed")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    # the reference bytes: the same CLI on the CPU (the kernels' plain
+    # versions; the CPU tests hold that run byte-equal to hal_tpu's CLI)
+    out_cpu = os.path.join(tmp, "cpu.bed")
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "hal_tpu.tools.halLiftover",
-                    "--batchSize", str(CLI_BATCH), hal, src2, bed, tgt2,
-                    out_host], cwd=REPO, env=env, check=True)
-    t_host = time.perf_counter() - t0
+    port_cli.run([hal, src2, bed, tgt2, out_cpu, "--batchSize",
+                  str(CLI_BATCH), "--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    if K.launches() != counts:
+        raise AssertionError("the --device cpu run launched a kernel")
     a = open(out_port, "rb").read()
-    b = open(out_host, "rb").read()
-    if a != b:
-        raise AssertionError("CLI output differs from the host halLiftover "
-                             "(%d vs %d bytes)" % (len(a), len(b)))
+    b = open(out_cpu, "rb").read()
+    if not a or a != b:
+        raise AssertionError("CLI output on --device cuda differs from "
+                             "--device cpu (%d vs %d bytes)"
+                             % (len(a), len(b)))
     log("  halLiftover %s -> %s: %d lines in, %d bytes out, byte-equal to "
-        "the host hal_tpu halLiftover (%.1fs)"
-        % (src2, tgt2, CLI_LINES, len(a), t_host))
+        "the same CLI on --device cpu (%.1fs)"
+        % (src2, tgt2, CLI_LINES, len(a), t_cpu))
     return counts
 
 

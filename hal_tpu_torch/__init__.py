@@ -1,17 +1,27 @@
 """hal_tpu_torch — the batched liftover path of hal_tpu in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The JAX package hal_tpu stays the reference: this package imports its
-host layers (alignment, genome, tree, storage, io, the host mappers and
-liftover formatting) and never imports jax.  Module names mirror hal_tpu's
-so each counterpart is easy to find:
+The JAX package hal_tpu stays the reference.  This package imports
+nothing of it and never imports jax: it keeps its own numpy-only copies of
+the host modules it needs, each named after the module it copies and held
+equal to it by tests/test_torch_host_copies.py.  Module names mirror
+hal_tpu's so each counterpart is easy to find:
 
+  constants, dna, tree, genome, alignment, randgen
+                        copies of the genome model and its random fixtures
+  storage/              copies of open_alignment / save_alignment (halz,
+                        mmap, HDF5 with h5py imported lazily; no URLs)
+  io/bed.py             copy of read_bed, BedLine, PSLInfo
+  ops/segmap_host.py    copy of the host mapper and Fragments
   ops/tables.py         numpy host helpers of segmap_jax (copies)
   ops/kernels.py        the CUDA kernels' wrappers + plain versions
                         (hal_tpu/ops/pallas_kernels.py)
   ops/segmap_torch.py   the batched segment mapper (ops/segmap_jax.py)
-  ops/liftover_bulk.py  bulk BED liftover (ops/liftover_bulk.py)
-  ops/liftover.py       Liftover.convert_batched on the torch mapper
+  ops/liftover_bulk.py  bulk BED liftover: the host halves copied, the
+                        device branches on the torch mapper
+  ops/liftover.py       a copy of hal_tpu's Liftover whose
+                        convert_batched runs the torch mapper
+  tools/__init__.py     copy of the tools' parser and error conventions
   tools/halLiftover.py  the CLI, with --device {cuda,cpu}
   csrc/*.cu             the CUDA sources, built by ops/_build.py
 """

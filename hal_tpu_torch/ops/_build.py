@@ -80,9 +80,15 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        lib.hal_searchsorted_right_i32.argtypes = [vp, ctypes.c_int, vp, vp,
-                                                   ll, vp]
-        lib.hal_searchsorted_right_i32.restype = ctypes.c_int
+        i32 = ctypes.c_int
+        lib.hal_searchsorted_right.argtypes = [vp, i32, vp, vp, vp, vp, ll,
+                                               i32, vp]
+        lib.hal_searchsorted_right.restype = i32
+        from hal_tpu_torch.ops.kernels import SEARCH_TREE_CAP
+
+        if lib.hal_searchsorted_tree_cap() != SEARCH_TREE_CAP:
+            raise RuntimeError("csrc/searchsorted.cu's kTreeCap differs "
+                               "from kernels.SEARCH_TREE_CAP")
         for name in ("hal_cumsum_i32", "hal_cummax_i32"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, ll, vp, ctypes.c_ulonglong, ctypes.c_uint,

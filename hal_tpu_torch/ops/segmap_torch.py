@@ -9,19 +9,29 @@ packed (8, cap) matrix, rows [s_lo, s_hi, t_lo, t_hi, rev, owner, valid,
 aux], as in the JAX package, so both can be compared slot for slot.
 
 The three Pallas kernels of the JAX package are hand-written CUDA kernels
-here (hal_tpu_torch.ops.kernels): searchsorted over grids of at most
-_KERNEL_GRID_LIMIT segments, and the cumsum / cummax of every expansion.
-Everything XLA fused outside a Pallas kernel (column gathers, the paged
-binary search, the sort, scatters and bit packing of runs_packed) is plain
-torch.
+here (hal_tpu_torch.ops.kernels): searchsorted over int32 and uint32-range
+grids of at most _KERNEL_GRID_LIMIT segments, and the cumsum / cummax of
+every expansion.  Everything XLA fused outside a Pallas kernel (column
+gathers, the paged binary search, the sort, scatters and bit packing of
+runs_packed) is plain torch.
+
+Lookup dispatch.  Page tables are built, as in segmap_jax, for grids of
+more than _PAGE_GRID_LIMIT (65,536) segments, so Levels equal the JAX
+package's.  The searchsorted kernel takes every int32 or uint32-range grid
+of at most _KERNEL_GRID_LIMIT segments (2,097,088: the top of its sector
+B-tree fits a block's shared memory up to there), the bench-scale levels included; the
+65,536 limit was the TPU kernel's (its compare-count grid must fit VMEM).
+Larger grids and int64-coordinate paths keep the paged binary search, or
+torch.searchsorted where no page table could be built.
 
 Dtype rule.  Coordinates are int32 where the JAX package picks int32
 (every genome length and segment count on the path below 2^31 - 2), and
 int64 otherwise.  Where the JAX package picks uint32 (below 2^32 - 2) the
 port holds the same values in int64 — torch has few uint32 operators — and
-marks the Level `u32`: its searchsorted kernel branch maps int64 values to
-int32 by subtracting 2^31 (the order-preserving bias of segmap_jax's
-x ^ 2^31), and the 32-bit run wire stays legal for the path.  Index math
+marks the Level `u32`: its grid is also kept as int32 under the
+order-preserving 2^31 bias of segmap_jax's x ^ 2^31 (Level.grid_i32), which
+the searchsorted kernel's uint32 entry searches with int64 queries biased
+in registers, and the 32-bit run wire stays legal for the path.  Index math
 (counts, offsets, owners of an expansion) is int32, as in _expand_owner.
 u32 wraparound that runs_packed relies on is emulated in int64 with
 & 0xFFFFFFFF.
@@ -36,8 +46,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from hal_tpu.alignment import Alignment
-from hal_tpu.constants import NULL_INDEX
+from hal_tpu_torch.alignment import Alignment
+from hal_tpu_torch.constants import NULL_INDEX
 from hal_tpu_torch.ops import kernels
 from hal_tpu_torch.ops import tables
 from hal_tpu_torch.ops.tables import _PAGE_WINDOW
@@ -45,9 +55,12 @@ from hal_tpu_torch.ops.tables import _PAGE_WINDOW
 # packed fragment-state rows of the (8, cap) state matrix
 C_SLO, C_SHI, C_TLO, C_THI, C_REV, C_OWN, C_VALID, C_AUX = range(8)
 
-# grids up to this many entries take the searchsorted kernel
-# (segmap_jax._PALLAS_GRID_LIMIT); larger grids use the paged binary search
-_KERNEL_GRID_LIMIT = 65536
+# grids of more than this many entries get a page table
+# (segmap_jax._PALLAS_GRID_LIMIT)
+_PAGE_GRID_LIMIT = 65536
+# int32 / uint32-range grids up to this many entries take the searchsorted
+# kernel; larger ones (and int64 paths) use the paged binary search
+_KERNEL_GRID_LIMIT = kernels.SEARCH_GRID_LIMIT
 
 _U32 = 0xFFFFFFFF
 _BIAS = 1 << 31
@@ -57,7 +70,10 @@ _BIAS = 1 << 31
 class Level:
     """One traversal level's device tensors (packed (fields, n) tables, as
     segmap_jax.Level).  u32: coordinates are int64 holding the values the
-    JAX package keeps as uint32."""
+    JAX package keeps as uint32.  grid_i32, fences8, search_tree: what the
+    searchsorted kernel searches (the grid itself when int32, its 2^31-
+    biased int32 copy when u32) and kernels.search_tables of it; None where
+    the kernel does not take the level."""
 
     kind: str  # 'up' | 'down'
     grid: torch.Tensor
@@ -67,6 +83,9 @@ class Level:
     page_tab: torch.Tensor | None = None
     page_shift: int = 0
     u32: bool = False
+    grid_i32: torch.Tensor | None = None
+    fences8: torch.Tensor | None = None
+    search_tree: torch.Tensor | None = None
 
 
 def _level(kind, grid, seg_table, ring_mem_tab, max_ring, page_tab,
@@ -80,10 +99,16 @@ def _level(kind, grid, seg_table, ring_mem_tab, max_ring, page_tab,
     def t(a, d):
         return torch.from_numpy(np.array(a, d)).to(device)
 
-    return Level(kind=str(kind), grid=t(grid, dt), seg_table=t(seg_table, dt),
+    grid_t = t(grid, dt)
+    grid_i32 = f8 = tree = None
+    if (u32 or dt == np.int32) and len(grid) <= _KERNEL_GRID_LIMIT:
+        grid_i32 = kernels.bias_u32(grid_t) if u32 else grid_t
+        f8, tree = kernels.search_tables(grid_i32)
+    return Level(kind=str(kind), grid=grid_t, seg_table=t(seg_table, dt),
                  ring_mem_tab=t(ring_mem_tab, dt), max_ring=int(max_ring),
                  page_tab=None if page_tab is None else t(page_tab, np.int32),
-                 page_shift=int(page_shift), u32=bool(u32))
+                 page_shift=int(page_shift), u32=bool(u32), grid_i32=grid_i32,
+                 fences8=f8, search_tree=tree)
 
 
 @dataclass(frozen=True)
@@ -186,7 +211,7 @@ class PathData:
 
 
 def _pages(starts):
-    return ((None, 0) if len(starts) <= _KERNEL_GRID_LIMIT
+    return ((None, 0) if len(starts) <= _PAGE_GRID_LIMIT
             else tables._build_page_table(starts))
 
 
@@ -255,20 +280,36 @@ def build_down_level(aln: Alignment, cur: str, nxt: str, rings: bool,
 # fixed-capacity building blocks
 # --------------------------------------------------------------------------
 
-def _searchsorted_right(grid, q, page_tab=None, page_shift=0, u32=False):
-    if grid.shape[0] <= _KERNEL_GRID_LIMIT or page_tab is None:
-        if grid.shape[0] <= _KERNEL_GRID_LIMIT:
-            if grid.dtype == torch.int32 and q.dtype == torch.int32:
-                return kernels.searchsorted_right(grid, q)
-            if u32:
-                # uint32-range int64 -> int32 by the order-preserving 2^31
-                # bias; queries outside [0, 2^32) only occur in masked slots
-                gx = (grid - _BIAS).to(torch.int32)
-                qx = (q.clamp(0, _U32) - _BIAS).to(torch.int32)
-                return kernels.searchsorted_right(gx, qx).to(q.dtype)
+def _searchsorted_right(grid, q, page_tab=None, page_shift=0, u32=False,
+                        grid_i32=None, tables=None):
+    """searchsorted(grid, q, side='right') in q's dtype, by the dispatch of
+    the module docstring.  grid_i32 / tables: the Level's cached kernel
+    tables (built here when absent)."""
+    if grid.shape[0] <= _KERNEL_GRID_LIMIT:
+        if u32:
+            # queries outside [0, 2^32) only occur in masked slots
+            if grid_i32 is None:
+                grid_i32 = kernels.bias_u32(grid)
+            return kernels.searchsorted_right_u32(grid_i32, q, tables)
+        if grid.dtype == torch.int32 and q.dtype == torch.int32:
+            return kernels.searchsorted_right(grid, q, tables)
+    if page_tab is None:
         return torch.searchsorted(grid, q, right=True).to(q.dtype)
-    # paged: page-table hop + unrolled binary search over the page window.
-    # returns searchsorted_right(grid, q) for in-range q (0 <= q < end).
+    return _paged_searchsorted(grid, q, page_tab, page_shift)
+
+
+def _lookup(level: Level, q):
+    tables = None if level.fences8 is None else (level.fences8,
+                                                 level.search_tree)
+    return _searchsorted_right(level.grid, q, level.page_tab,
+                               level.page_shift, level.u32, level.grid_i32,
+                               tables)
+
+
+def _paged_searchsorted(grid, q, page_tab, page_shift):
+    """Page-table hop + unrolled binary search over the page window (plain
+    torch); equals searchsorted_right(grid, q) for in-range q
+    (0 <= q < end)."""
     n = grid.shape[0]
     page = torch.clamp(q >> page_shift, 0, page_tab.shape[0] - 1)
     i = page_tab[page.long()].to(q.dtype)
@@ -311,10 +352,8 @@ def _split_hop(level: Level, F, cap_out, min_length: int = 0):
     t_lo = F[C_TLO]
     t_hi = F[C_THI]
     valid = F[C_VALID] > 0
-    i0 = _searchsorted_right(level.grid, t_lo, level.page_tab,
-                             level.page_shift, level.u32) - 1
-    i1 = _searchsorted_right(level.grid, t_hi - 1, level.page_tab,
-                             level.page_shift, level.u32) - 1
+    i0 = _lookup(level, t_lo) - 1
+    i1 = _lookup(level, t_hi - 1) - 1
     counts = torch.where(valid & (i1 >= i0), i1 - i0 + 1, 0)
     own, offsets, total = _expand_owner(counts, cap_out)
     # gather-once source matrix: [s_lo, s_hi, t_lo, t_hi, rev, owner, offset, i0]

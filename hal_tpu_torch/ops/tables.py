@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from hal_tpu.alignment import Alignment
-from hal_tpu.constants import NULL_INDEX
+from hal_tpu_torch.alignment import Alignment
+from hal_tpu_torch.constants import NULL_INDEX
 
 # paged lookup: window of candidate segments per query after the page-table
 # hop; pages are sized on host so a page never spans more segments

@@ -13,8 +13,9 @@ import sys
 
 import torch
 
-from hal_tpu import open_alignment
-from hal_tpu.tools import HalError, add_storage_options, make_parser, tool_main
+from hal_tpu_torch.storage import open_alignment
+from hal_tpu_torch.tools import (HalError, add_storage_options, make_parser,
+                                 tool_main)
 from hal_tpu_torch.ops.liftover import Liftover
 
 

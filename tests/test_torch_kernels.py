@@ -62,6 +62,159 @@ def test_searchsorted_uint32_bias_equals_jax():
     assert np.array_equal(got.numpy(), np.searchsorted(grid, q, side="right"))
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 63, 64, 65, 1000, 65537])
+def test_fence_tables_equal_numpy_slicing(n):
+    """fence_tables(grid) = (grid[::8], grid[::64]) as contiguous int32
+    tensors, at lengths around the sector (8) and fences8-sector (64)
+    edges; search_tables(grid) is fences8 and the breadth-first tree of
+    the top level; the kernel's wrapper with them equals numpy."""
+    rng = np.random.default_rng(n)
+    grid, q = _grid_and_queries(rng, n, 777)
+    grid = grid.astype(np.int32)
+    g_t = torch.from_numpy(grid)
+    f8, f64 = K.fence_tables(g_t)
+    for f, step in ((f8, 8), (f64, 64)):
+        assert f.dtype == torch.int32 and f.is_contiguous()
+        assert np.array_equal(f.numpy(), grid[::step])
+    assert len(f8) == (n + 7) // 8 and len(f64) == (n + 63) // 64
+    tables = K.search_tables(g_t)
+    assert np.array_equal(tables[0].numpy(), grid[::8])
+    assert np.array_equal(tables[1].numpy(), _eytzinger(grid[::8]))
+    got = K.searchsorted_right(g_t, torch.from_numpy(q.astype(np.int32)),
+                               tables)
+    assert np.array_equal(got.numpy(), np.searchsorted(grid, q, side="right"))
+
+
+def _eytzinger(top):
+    """The perfect binary search tree over a sorted table in breadth-first
+    order, filled by an in-order walk: h = len(top).bit_length(),
+    max(2^h, 4) words, word 0 unused, INT32_MAX past the keys."""
+    h = len(top).bit_length()
+    out = np.full(max(1 << h, 4), I32.max, np.int64)
+    keys = iter(list(top) + [I32.max] * ((1 << h) - 1 - len(top)))
+
+    def fill(k):
+        if k < (1 << h):
+            fill(2 * k)
+            out[k] = next(keys)
+            fill(2 * k + 1)
+
+    fill(1)
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 7, 8, 100, 8191, 8192, 18432])
+def test_search_tree_equals_inorder_fill(m):
+    """search_tree() equals the breadth-first tree filled by an in-order
+    walk (the layout csrc/searchsorted.cu stages in shared memory)."""
+    top = np.sort(np.random.default_rng(m).integers(-1000, 1000, m))
+    got = K.search_tree(torch.from_numpy(top.astype(np.int32)))
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert np.array_equal(got.numpy(), _eytzinger(top))
+
+
+def _emulate_kernel(grid, q, f8, tree, cap):
+    """csrc/searchsorted.cu's arithmetic in numpy: h descent steps of the
+    staged tree, one sector of fences8 where the tree holds fences64, one
+    sector of the grid."""
+    n, n8 = len(grid), len(f8)
+    two = n8 > cap
+    m = (n + 63) // 64 if two else n8
+    h = m.bit_length()
+    k = np.ones(len(q), np.int64)
+    for _ in range(h):
+        k = 2 * k + (tree[k] <= q)
+    s = np.minimum(k - (1 << h), m)
+    k = np.where(s > 0, s - 1, 0)
+
+    def sector_count(a, base):
+        idx = base[:, None] + np.arange(8)
+        return ((a[np.minimum(idx, len(a) - 1)] <= q[:, None])
+                & (idx < len(a))).sum(1)
+
+    if two:
+        c = sector_count(f8, 8 * k)
+        k = np.where(c > 0, 8 * k + c - 1, 0)
+    return np.where(s == 0, 0, 8 * k + sector_count(grid, 8 * k))
+
+
+@pytest.mark.parametrize("cap", [K.SEARCH_TREE_CAP, 3, 15])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 63, 64, 65, 1000, 3000, 65537])
+def test_kernel_arithmetic_equals_numpy(monkeypatch, n, cap):
+    """The kernel's descent over search_tables(), emulated in numpy, equals
+    np.searchsorted at grids around the sector and fence edges, with
+    duplicate runs across them, exact hits, INT32_MIN and INT32_MAX - 1;
+    a small tree cap forces the two-level path (fences64 on top)."""
+    monkeypatch.setattr(K, "SEARCH_TREE_CAP", cap)
+    rng = np.random.default_rng(n + cap)
+    grid, q = _grid_and_queries(rng, n, 3001)
+    for e in (8, 64, 512):
+        if e + 5 < n:
+            grid[e - 3:e + 5] = grid[e - 3]
+    grid = grid.astype(np.int32)
+    q = q.astype(np.int32)
+    q[4:6] = [I32.min, I32.max - 1]
+    q[6:6 + min(n, 1000)] = grid[:1000]
+    f8, tree = (t.numpy() for t in K.search_tables(torch.from_numpy(grid)))
+    m = len(f8) if len(f8) <= cap else (n + 63) // 64
+    assert len(tree) == max(1 << m.bit_length(), 4)
+    got = _emulate_kernel(grid.astype(np.int64), q.astype(np.int64),
+                          f8.astype(np.int64), tree.astype(np.int64), cap)
+    assert np.array_equal(got, np.searchsorted(grid, q, side="right"))
+
+
+def test_levels_carry_fence_tables():
+    """PathData.build and PathData.from_numpy (over segmap_jax's Levels)
+    fill grid_i32 and the fence tables of every kernel level: the grid
+    itself on int32 paths, its 2^31-biased copy on uint32-range ones."""
+    from test_torch_segmap import _big_genome, _runs_fixture
+
+    aln, src, tgt, _lo, _hi = _runs_fixture(3)
+    big = _big_genome()[0]
+    bl = [n for n in big.genome_names() if big.tree.is_leaf(n)]
+    for a, s_, t_ in ((aln, src, tgt), (big, bl[0], bl[-1])):
+        pj = sj.PathData.build(a, s_, t_)
+        for pt in (st.PathData.build(a, s_, t_, device="cpu"),
+                   st.PathData.from_numpy(pj.levels, pj.n_up,
+                                          device="cpu")):
+            for lv in pt.levels:
+                g = lv.grid.numpy().astype(np.int64)
+                want = g - (1 << 31) if lv.u32 else g
+                assert lv.grid_i32.dtype == torch.int32
+                assert np.array_equal(lv.grid_i32.numpy(), want)
+                if not lv.u32:
+                    assert lv.grid_i32 is lv.grid
+                assert np.array_equal(lv.fences8.numpy(), want[::8])
+                assert np.array_equal(lv.search_tree.numpy(),
+                                      _eytzinger(want[::8]))
+
+
+def test_searchsorted_u32_plain_equals_numpy_biased():
+    """The uint32 entry's plain version: int64 queries clamped to
+    [0, 2^32 - 1] and biased, searched in the biased int32 grid, equal
+    np.searchsorted on the biased values; the masked slots' out-of-range
+    queries (negative, >= 2^32) clamp to the ends."""
+    rng = np.random.default_rng(13)
+    grid = np.sort(rng.integers(0, (1 << 32) - 2, 4000))
+    grid[100:140] = grid[100]  # duplicates across sector and fence edges
+    q = rng.integers(-(1 << 33), 1 << 33, 9000)
+    q[:8] = [-1, 0, (1 << 31) - 1, 1 << 31, (1 << 32) - 2, (1 << 32) - 1,
+             1 << 32, -(1 << 40)]
+    q[8:16] = grid[[0, 1, 99, 100, 139, 140, -2, -1]]
+    gb = K.bias_u32(torch.from_numpy(grid))
+    assert gb.dtype == torch.int32
+    assert np.array_equal(gb.numpy(), (grid - (1 << 31)).astype(np.int32))
+    got = K.searchsorted_right_u32(gb, torch.from_numpy(q))
+    assert got.dtype == torch.int64
+    qc = np.clip(q, 0, (1 << 32) - 1) - (1 << 31)
+    want = np.searchsorted(grid - (1 << 31), qc, side="right")
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(
+        K.searchsorted_right_u32_plain(gb, torch.from_numpy(q)).numpy(), want)
+    with pytest.raises(TypeError):
+        K.searchsorted_right_u32(gb, torch.from_numpy(q).int())
+
+
 def _scan_inputs(rng, n):
     """(cumsum input, cummax input) pairs at length n: small values; sums
     that cross +-2^31 every few items; INT32_MIN / INT32_MAX."""
@@ -130,14 +283,22 @@ def test_cuda_kernels_equal_plain():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    for n in (1, 3000, 65536):
-        grid, q = _grid_and_queries(rng, n, 1 << 16)
+    for n in (1, 7, 8, 9, 63, 64, 65, 3000, 65536, 65537, 1179648):
+        grid, q = _grid_and_queries(rng, n, (1 << 16) + 3)
         g_t = torch.from_numpy(grid.astype(np.int32)).to(dev)
         q_t = torch.from_numpy(q.astype(np.int32)).to(dev)
         before = K.searchsorted_right.launches
         assert torch.equal(K.searchsorted_right(g_t, q_t),
                            K.searchsorted_right_plain(g_t, q_t))
         assert K.searchsorted_right.launches == before + 1
+        assert torch.equal(K.searchsorted_right(g_t[1:], q_t[1:]),
+                           K.searchsorted_right_plain(g_t[1:], q_t[1:]))
+        gu, qu = _grid_and_queries(rng, n, 5001, lo=0, hi=(1 << 32) - 2)
+        qu[-4:] = [-5, 1 << 32, (1 << 32) + 9, -(1 << 40)]
+        gb = K.bias_u32(torch.from_numpy(gu).to(dev))
+        qu_t = torch.from_numpy(qu).to(dev)
+        assert torch.equal(K.searchsorted_right_u32(gb, qu_t),
+                           K.searchsorted_right_u32_plain(gb, qu_t))
     for n in LENGTHS + TILE_EDGES + [33 * SCAN_TILE + 5, 1310720]:
         x = torch.from_numpy(rng.integers(-9, 9, n).astype(np.int32)).to(dev)
         assert torch.equal(K.cumsum_i32(x), K.cumsum_i32_plain(x))

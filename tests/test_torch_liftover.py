@@ -3,8 +3,10 @@ hal_tpu_torch.ops.liftover, hal_tpu_torch.tools.halLiftover) on the CPU:
 BED text and CLI output bytes equal the JAX package's.  Tolerance: exact
 byte equality."""
 
+import ast
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -16,7 +18,7 @@ from hal_tpu.ops import liftover_bulk as jax_bulk
 from hal_tpu.ops.liftover import Liftover as HostLiftover
 from hal_tpu.randgen import create_random_alignment
 from hal_tpu.storage import save_alignment
-from hal_tpu.tools import HalError
+from hal_tpu_torch.tools import HalError
 from hal_tpu_torch.ops import liftover_bulk as bulk
 from hal_tpu_torch.ops.liftover import Liftover
 from test_reference_goldens import LIFTOVER_CASES, REF, _golden, small_hal  # noqa: F401
@@ -212,18 +214,52 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 
 def test_port_imports_no_jax():
-    """Every hal_tpu_torch module imports without jax entering the process
-    (segmap_jax would turn on jax_enable_x64 process-wide)."""
+    """Every hal_tpu_torch module imports without jax or any module of the
+    JAX package (hal_tpu, hal_tpu.*) entering the process: the port keeps
+    its own copies of the host code it needs."""
     code = ("import sys, pkgutil, importlib, hal_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "hal_tpu_torch.__path__, 'hal_tpu_torch.')]\n"
             "for m in mods: importlib.import_module(m)\n"
-            "assert len(mods) >= 8, mods\n"
-            "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
-            " or k in ('hal_tpu.ops.segmap_jax', 'hal_tpu.ops.pallas_kernels')]\n"
+            "assert len(mods) >= 20, mods\n"
+            "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
+            " or k.startswith(('jax.', 'hal_tpu.'))]\n"
             "assert not bad, bad\n"
             "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
-    assert int(res.stdout.strip()) >= 8
+    assert int(res.stdout.strip()) >= 20
+
+
+def _names_hal_tpu(text: str) -> bool:
+    """True where text names the JAX package (hal_tpu as a module or path
+    word, not hal_tpu_torch)."""
+    return re.search(r"\bhal_tpu\b", text) is not None
+
+
+def test_chip_smoke_imports_and_runs_no_hal_tpu():
+    """chip_smoke.py neither imports hal_tpu nor jax, nor names hal_tpu in
+    the arguments of any subprocess it starts (read with ast)."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            imported.append(node.module or "")
+    assert "torch" in imported and "hal_tpu_torch.ops" in imported
+    assert not [m for m in imported
+                if m.split(".")[0] in ("hal_tpu", "jax")], imported
+    calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute)
+             and isinstance(n.func.value, ast.Name)
+             and n.func.value.id == "subprocess"]
+    assert calls
+    for call in calls:
+        for arg in list(call.args) + [k.value for k in call.keywords]:
+            for c in ast.walk(arg):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str):
+                    assert not _names_hal_tpu(c.value), c.value
+    assert _names_hal_tpu("python -m hal_tpu.tools.halLiftover")
+    assert not _names_hal_tpu("python -m hal_tpu_torch.tools.halLiftover")

@@ -166,6 +166,7 @@ def test_from_numpy_equals_build(monkeypatch):
         assert all(np.array_equal(x, y) for x, y in
                    zip(st.map_batch(pf, lo2, hi2), st.map_batch(pt, lo2, hi2)))
     monkeypatch.setattr(sj, "_PALLAS_GRID_LIMIT", 4)
+    monkeypatch.setattr(st, "_PAGE_GRID_LIMIT", 4)
     monkeypatch.setattr(st, "_KERNEL_GRID_LIMIT", 4)
     pj = sj.PathData.build(aln, src, tgt)
     pt = st.PathData.build(aln, src, tgt, device="cpu")
@@ -230,6 +231,7 @@ def test_overflow_retry():
 def test_paged_lookup_matches_host_and_jax(monkeypatch):
     """Force the paged lookup on small grids (test_segmap_jax.py's
     test_paged_lookup_matches_host) on both packages."""
+    monkeypatch.setattr(st, "_PAGE_GRID_LIMIT", 4)
     monkeypatch.setattr(st, "_KERNEL_GRID_LIMIT", 4)
     monkeypatch.setattr(sj, "_PALLAS_GRID_LIMIT", 4)
     aln = create_random_alignment(seed=5, max_genomes=5, min_segments=8,
@@ -377,3 +379,42 @@ def test_runs_packed_wire_equals_jax(case):
     want = [r for r in _host_runs(aln, src, tgt, lo, hi)
             if not dupes[r[0]]]
     assert sorted(rows) == want
+
+
+@pytest.mark.parametrize("case", list(CASES) + ["options3", "big_u32"])
+def test_kernel_lookup_on_paged_levels_equals_jax(monkeypatch, case):
+    """Levels carry page tables (page limit 4, as segmap_jax's paged
+    fixtures) while the port's lookups take the searchsorted kernel (its
+    limit left at the default): _run_path's fragment matrix and
+    runs_packed's wire still equal segmap_jax's paged results slot for
+    slot (valid columns only on the uint32 path, as everywhere)."""
+    monkeypatch.setattr(sj, "_PALLAS_GRID_LIMIT", 4)
+    monkeypatch.setattr(st, "_PAGE_GRID_LIMIT", 4)
+    build = {}
+    if case == "options3":
+        aln, src, tgt, lo, hi = _runs_fixture(3)
+        build = dict(min_length=3)
+    elif case == "big_u32":
+        aln, lo, hi = _big_genome()
+        leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+        src, tgt = leaves[0], leaves[-1]
+    else:
+        aln, src, tgt, lo, hi = CASES[case]()
+    J, T, pj, pt, caps = _run_both(aln, src, tgt, lo, hi, **build)
+    paged = [lv for lv in pt.levels if lv.page_tab is not None]
+    assert paged and all(lv.fences8 is not None for lv in paged)
+    assert all(lv.page_tab is not None for lv in pj.levels
+               if lv.grid.shape[0] > 4)
+    assert not bool(T[2])
+    u32 = case == "big_u32"
+    _assert_same_run(J, T, full=not u32)
+    _assert_same_wire(aln, tgt, lo, J[0], T[0])
+    # the kernel (its plain version here) served every lookup
+    seen = []
+    real = st.kernels.searchsorted_right_u32 if u32 else \
+        st.kernels.searchsorted_right
+    monkeypatch.setattr(st.kernels, real.__name__,
+                        lambda g, q, f=None: seen.append(f) or real(g, q, f))
+    st._run_path(pt, st.coords(pt, lo), st.coords(pt, hi),
+                 torch.arange(len(lo), dtype=pt.dtype), caps)
+    assert len(seen) == 2 * len(caps) and all(f is not None for f in seen)
