@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; nothing is caught):
-  1. build the CUDA kernels from hal_tpu_torch/csrc with nvcc (sm_90a);
+Phases (any failure raises and exits non-zero; nothing is caught), each
+printing its seconds:
+  1. build the CUDA kernels from hal_tpu_torch/csrc with nvcc (sm_90a), and
+     load the port's native host bindings, which build their libraries from
+     native/ with g++ (no -march=native: hal_tpu_torch.ops._native_build)
+     into hal_tpu_torch/build/ at first use, as every port CLI does;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality (searchsorted at grids around its sector, fence
      and tree-level edges up to its grid limit, with duplicates, misaligned
      views, uint32-range int64 queries and a second stream; the scans also at
      their tile edges, on wrapping sums, INT32_MIN/MAX, reused state, a
-     second stream and in place), each timed in turns against its plain
+     second stream and in place, and cumsum at the depth engine's lengths
+     2^26 + 1 and 2^27 + 1), each timed in turns against its plain
      version and one PyTorch library call at the main path's shapes;
   3. the batched liftover path at bench scale (bench.py's fixture: 10
      genomes of >= 2^20 segments, 2.3-2.6 Gb, 2^20 intervals of 1-199 bp):
@@ -23,7 +28,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      count set to 0 first: bulk_runs_device at bench scale, then the
      halLiftover CLI (--device cuda --batchSize 16384) on a ~100 Mb
      alignment; the CLI's bytes must equal the same CLI's on --device cpu
-     (the plain kernel versions), and every kernel must have launched.
+     (the plain kernel versions), and every kernel must have launched;
+  5. the alignment-depth engine on phase 3's fixture: DepthEngine over the
+     first 2^27 columns of the source genome against every genome, in both
+     count modes; run_device_only and run_runs timed, the profiler's device
+     ms per genome, and the whole 2^27-column vector equal to the host
+     depth_counts; then the halAlignmentDepth and halWiggleLiftover
+     (its default --batchSize, 16384 runs a call) CLIs on the CLI
+     alignment, --device cuda bytes equal to --device cpu;
+  6. the device column engine (hal2maf) on bench.py's MAF fixture (seed
+     11, 10 genomes of 2^20 segments of 128-129 bp, DNA): the first
+     2^21-column window through the native assembler byte-equal to the
+     native DFS engine, then six windows timed (device phase and end to
+     end), and the hal2maf CLI on a smaller DNA alignment, --device cuda
+     bytes equal to --device cpu.
+Phases 4-6 each drive a path with the launch counts set to 0 just before
+and read just after; every kernel must launch on every path.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -54,6 +74,12 @@ TIMED_ITERS = 10
 N_SAMPLE_OWNERS = 2048
 CLI_LINES = 1 << 16
 CLI_BATCH = 16384
+DEPTH_WINDOW = 1 << 27
+DEPTH_CLI_COLUMNS = 1 << 22
+WIG_BLOCKS = 400
+MAF_SEGMENTS = 1 << 20
+MAF_WINDOW = 1 << 21
+MAF_TIMED_WINDOWS = 6
 
 # H100 SXM data sheet: HBM bytes/s; 32-bit non-tensor operations/s (the
 # float32 rate, the table's rate for 32-bit ALU work)
@@ -93,9 +119,11 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
+def device_ms(fn, iters: int = 20, stats: dict | None = None):
     """Device time of fn() per call from torch.profiler: the sum over the
-    CUDA kernels and copies it ran, and those per name, largest first."""
+    CUDA kernels and copies it ran, and those per name, largest first.
+    stats, if given, receives "launches": the device kernels and copies
+    per call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -108,12 +136,14 @@ def device_ms(fn, iters: int = 20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer")]
         rows = sorted(((e.key, e.self_device_time_total / 1e3 / iters)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and not e.key.startswith("Activity Buffer")),
-                      key=lambda r: -r[1])
+                       for e in events), key=lambda r: -r[1])
         if rows:
+            if stats is not None:
+                stats["launches"] = sum(e.count for e in events) / iters
             return sum(ms for _, ms in rows), rows
     raise AssertionError("torch.profiler recorded no device time")
 
@@ -135,7 +165,7 @@ def timed_turns(kernel_fn, plain_fn, library_fn) -> dict:
 
 
 def phase_build() -> None:
-    from hal_tpu_torch.ops import _build
+    from hal_tpu_torch.ops import _build, _native_build
 
     found = _build.library_path().exists()
     t0 = time.perf_counter()
@@ -145,6 +175,25 @@ def phase_build() -> None:
         % (os.path.relpath(so, REPO),
            "found, not rebuilt" if found else "built with nvcc",
            time.perf_counter() - t0))
+    # the native host libraries, built for this machine's CPU by their
+    # bindings at first load (the tracked native/*.so are built with
+    # -march=native elsewhere)
+    from hal_tpu_torch import native
+    from hal_tpu_torch.ops import column_native
+
+    for what, mod, source in (("column engine", column_native,
+                               "column_engine.cpp"),
+                              ("runtime", native, "haltpu.cpp")):
+        want = str(_native_build.library_path(source))
+        t0 = time.perf_counter()
+        lib = mod._load()
+        if lib is None or lib._name != want:
+            raise AssertionError("native %s: %s not loaded (got %s)"
+                                 % (what, want,
+                                    None if lib is None else lib._name))
+        log("  native %s: native/%s built and loaded from %s in %.2fs"
+            % (what, source, os.path.relpath(lib._name, REPO),
+               time.perf_counter() - t0))
 
 
 def phase_kernels(dev) -> dict:
@@ -194,6 +243,17 @@ def phase_kernels(dev) -> dict:
 
     scan_edge_cases(K, dev, rng, check)
 
+    # the depth engine's lengths: the diff-cumsum (window + 1) and the
+    # RLE run ids of a window's counts
+    for n in ((1 << 26) + 1, (1 << 27) + 1):
+        x = rng.integers(-2, 3, n).astype(np.int32)
+        x_t = torch.from_numpy(x).to(dev)
+        got = K.cumsum_i32(x_t)
+        check("cumsum_i32", got, K.cumsum_i32_plain(x_t), "length %d" % n)
+        if not np.array_equal(got.cpu().numpy(), np.cumsum(x, dtype=np.int32)):
+            raise AssertionError("cumsum_i32 != numpy at length %d" % n)
+        del x_t, got
+
     # times at the main path's shapes.  cap = one query per slot of a
     # bench-scale level capacity.  searchsorted: a bench-scale uint32-range
     # level (1,179,648 segments) with int64 queries, as phase 3 runs it (the
@@ -218,6 +278,8 @@ def phase_kernels(dev) -> dict:
     counts = torch.from_numpy(rng.integers(0, 3, cap).astype(np.int32)).to(dev)
     marks = torch.from_numpy(np.where(rng.random(cap) < 0.8, 0,
                                       np.arange(cap)).astype(np.int32)).to(dev)
+    n27 = DEPTH_WINDOW + 1  # the depth engine's diff-cumsum length
+    diff27 = torch.from_numpy(rng.integers(-1, 2, n27).astype(np.int32)).to(dev)
 
     def ss_bytes(g, q):  # grid read once, queries in, results out
         return g.numel() * 4 + 2 * q.numel() * q.element_size()
@@ -249,6 +311,10 @@ def phase_kernels(dev) -> dict:
              lambda: K.cumsum_i32_plain(counts),
              lambda: torch.cumsum(counts, 0, dtype=torch.int32),
              8 * cap, cap, "length %d" % cap),
+            ("cumsum_i32", lambda: K.cumsum_i32(diff27),
+             lambda: K.cumsum_i32_plain(diff27),
+             lambda: torch.cumsum(diff27, 0, dtype=torch.int32),
+             8 * n27, n27, "length %d (a depth window's diff-cumsum)" % n27),
             ("cummax_i32", lambda: K.cummax_i32(marks),
              lambda: K.cummax_i32_plain(marks),
              lambda: torch.cummax(marks, 0), 8 * cap, cap,
@@ -686,14 +752,14 @@ def cli_fixture(tmp: str):
     return hal, src, tgt, bed
 
 
-def phase_main_path(dev, bench, tmp) -> dict:
+def phase_main_path(dev, bench, tmp, cli) -> dict:
     import torch
 
     from hal_tpu_torch.ops import kernels as K
     from hal_tpu_torch.ops.liftover_bulk import bulk_runs_device
     from hal_tpu_torch.tools import halLiftover as port_cli
 
-    hal, src2, tgt2, bed = cli_fixture(tmp)
+    hal, src2, tgt2, bed = cli
     out_port = os.path.join(tmp, "port.bed")
     aln = bench["aln"]
 
@@ -755,6 +821,381 @@ def phase_main_path(dev, bench, tmp) -> dict:
     return counts
 
 
+def host_profile(fn, top: int = 10) -> str:
+    """Where the host's time goes in one call of fn (after a warm call):
+    cProfile's functions by own time, as 'name own-ms/calls'."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(((v[2], k, v[1]) for k, v in st.stats.items()),
+                  reverse=True)[:top]
+    return "; ".join("%s:%s %.2f/%d" % (os.path.basename(k[0]), k[2],
+                                         1e3 * t, n) for t, k, n in rows)
+
+
+def profile_categories(rows) -> dict:
+    """Device ms of a profile's rows by kind: the hand kernels, the
+    scatters (index_add / scatter / index_copy) and everything else."""
+    out = {"kernels": 0.0, "scatter": 0.0, "other": 0.0}
+    for name, ms in rows:
+        if "scan_kernel" in name or "searchsorted_right_kernel" in name:
+            out["kernels"] += ms
+        elif "index" in name.lower() or "scatter" in name.lower():
+            out["scatter"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def check_launched(counts: dict, path: str) -> None:
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError("kernel %s was not launched on the %s path: "
+                                 "%s" % (name, path, counts))
+
+
+def cli_bytes_equal(run, argv, out_cuda, out_cpu, what) -> tuple:
+    """Run a CLI on --device cuda, then on --device cpu; the two outputs
+    must be equal bytes, every kernel must launch on the cuda run and none
+    on the cpu run.  Returns (bytes, cuda s, cpu s, launches)."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    run(argv(out_cuda) + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter() - t0
+    counts = K.launches()
+    check_launched(counts, what + " --device cuda")
+    t0 = time.perf_counter()
+    run(argv(out_cpu) + ["--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    if K.launches() != counts:
+        raise AssertionError("%s --device cpu launched a kernel" % what)
+    a = open(out_cuda, "rb").read()
+    b = open(out_cpu, "rb").read()
+    if not a or a != b:
+        raise AssertionError("%s: --device cuda output differs from --device "
+                             "cpu (%d vs %d bytes)" % (what, len(a), len(b)))
+    return len(a), t_cuda, t_cpu, counts
+
+
+def wiggle_fixture(aln, genome: str, path: str) -> int:
+    """A wiggle over the genome's first sequence from a seeded generator:
+    WIG_BLOCKS fixedStep blocks of 100-2,000 positions and one variableStep
+    block of 20,000 scattered positions (span 1).  Returns its positions."""
+    g = aln.open_genome(genome)
+    rng = np.random.default_rng(4)
+    name = g.seq_names[0]
+    slen = g.seq_length(0)
+    n = 0
+    with open(path, "w") as f:
+        for a in np.sort(rng.integers(0, slen - 2000, WIG_BLOCKS)):
+            k = int(rng.integers(100, 2000))
+            f.write("fixedStep chrom=%s start=%d step=1\n" % (name, a + 1))
+            f.write("".join("%g\n" % v for v in
+                            np.round(rng.normal(size=k), 3)))
+            n += k
+        pos = np.sort(rng.choice(slen, 20000, replace=False))
+        f.write("variableStep chrom=%s\n" % name)
+        f.writelines("%d %g\n" % (p + 1, v) for p, v in
+                     zip(pos, np.round(rng.random(20000), 2)))
+    return n + 20000
+
+
+def phase_depth(dev, bench, tmp, cli) -> dict:
+    """The alignment-depth engine at bench scale, then its CLIs.  Returns
+    the kernels' launches on one depth window (the unique-count run_runs
+    drain of the 2^27-column window)."""
+    import torch
+
+    from hal_tpu_torch.ops import depth
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.ops import tables
+    from hal_tpu_torch.ops.column import compute_scope
+
+    t_phase = time.perf_counter()
+    aln, src = bench["aln"], bench["src"]
+    scope, root = compute_scope(aln, src)
+    window = min(DEPTH_WINDOW, int(aln.open_genome(src).length))
+    log("phase 5 depth: %s, %d genomes in scope (root %s), window [0, %d)"
+        % (src, len(scope), root, window))
+    launches = None
+    for count_dupes in (False, True):
+        mode = "countDupes" if count_dupes else "unique"
+        t0 = time.perf_counter()
+        eng = depth.DepthEngine(aln, src, 0, window, scope, root,
+                                count_dupes=count_dupes, device=dev)
+        prep_s = time.perf_counter() - t0
+        eng.run_device_only()  # warm: allocator and first launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, cols, total = eng.run_device_only()
+        dev_s = time.perf_counter() - t0
+        # bench.py's columns_per_s also times the sum of the window-sized
+        # host dupe-count vector, which the port does once in host prep
+        t0 = time.perf_counter()
+        float(eng._host_base.sum())
+        sum_s = time.perf_counter() - t0
+        K.reset_launches()
+        t0 = time.perf_counter()
+        starts, vals, _w = eng.run_runs()
+        runs_s = time.perf_counter() - t0
+        if launches is None:
+            launches = K.launches()
+            check_launched(launches, "depth")
+        drain_mb = 2 * 4 * tables._bucket_cap(len(starts)) / 1e6
+        log("  %s: host prep %.2fs (%d device genomes, %d on the host); "
+            "run_device_only %.4fs -> %.4g columns/s (mean depth %.4f); "
+            "with the host-base sum bench.py's span also times (%.4fs) "
+            "%.4g columns/s; run_runs %.4fs (device + RLE drain of %d "
+            "runs, %.2f MB wire vs %.0f MB dense); launches per window %s"
+            % (mode, prep_s, len(eng.jobs), len(scope) - len(eng.jobs),
+               dev_s, cols / dev_s, mean, sum_s, cols / (dev_s + sum_s),
+               runs_s, len(starts), drain_mb, 4 * window / 1e6,
+               K.launches()))
+        # where the time goes: device ms of the window, and per genome
+        stats = {}
+        dev_ms, rows = device_ms(eng._dispatch, iters=2, stats=stats)
+        cat = profile_categories(rows)
+        log("  %s profile: %.3f ms device/window (hand kernels %.3f, "
+            "scatters %.3f, other %.3f) in %d device launches, against "
+            "%.3f ms host clock (run_device_only): device idle %.0f%%, "
+            "%.1f us of host per launch; top: %s"
+            % (mode, dev_ms, cat["kernels"], cat["scatter"], cat["other"],
+               stats["launches"], 1e3 * dev_s,
+               100 * (1 - dev_ms / (1e3 * dev_s)),
+               1e6 * dev_s / stats["launches"],
+               "; ".join("%s %.3f" % (k[:40], ms) for k, ms in rows[:5])))
+        log("  %s host profile of a window (own ms/calls): %s"
+            % (mode, host_profile(eng.run_device_only)))
+        for g, (path, lo, hi, caps) in zip(eng.genomes, eng.jobs):
+            ms, grows = device_ms(
+                lambda: depth._depth_one(path, lo, hi, caps, window,
+                                         count_dupes), iters=2)
+            c = profile_categories(grows)
+            log("    %s: %.3f ms device (kernels %.3f, scatters %.3f, "
+                "other %.3f), %d levels"
+                % (g, ms, c["kernels"], c["scatter"], c["other"],
+                   len(path.levels) + sum(1 + len(d) for _u, d in path.para)))
+        # the whole window against the host engine
+        t0 = time.perf_counter()
+        want = depth.depth_counts(aln, src, 0, window, scope, root,
+                                  count_dupes)
+        host_s = time.perf_counter() - t0
+        got = depth.rle_decode(starts, vals, window)
+        dense = total.cpu().numpy().astype(np.int64) + eng._host_base - 1
+        if not (np.array_equal(got, want) and np.array_equal(dense, want)):
+            bad = np.flatnonzero((got != want) | (dense != want))
+            raise AssertionError("depth %s: device counts != host depth_counts "
+                                 "at %d of %d columns (first %d)"
+                                 % (mode, len(bad), window, bad[0]))
+        log("  %s: all %d columns (RLE drain and dense drain) equal host "
+            "depth_counts (host %.1fs)" % (mode, window, host_s))
+        del eng, total, got, want, dense
+    torch.cuda.empty_cache()
+
+    from hal_tpu_torch.tools import halAlignmentDepth, halWiggleLiftover
+
+    hal, src2, tgt2, _bed = cli
+    n, t_cuda, t_cpu, c = cli_bytes_equal(
+        halAlignmentDepth.run,
+        lambda out: [hal, src2, "--outWiggle", out, "--length",
+                     str(DEPTH_CLI_COLUMNS)],
+        os.path.join(tmp, "depth_cuda.wig"),
+        os.path.join(tmp, "depth_cpu.wig"), "halAlignmentDepth")
+    log("  halAlignmentDepth %s (%d columns): %d bytes, --device cuda %.1fs "
+        "equal to --device cpu %.1fs; launches %s"
+        % (src2, DEPTH_CLI_COLUMNS, n, t_cuda, t_cpu, c))
+    from hal_tpu_torch.storage import open_alignment
+
+    wig = os.path.join(tmp, "in.wig")
+    n_pos = wiggle_fixture(open_alignment(hal), src2, wig)
+    n, t_cuda, t_cpu, c = cli_bytes_equal(
+        halWiggleLiftover.run,
+        lambda out: [hal, src2, wig, tgt2, out],
+        os.path.join(tmp, "wig_cuda.wig"), os.path.join(tmp, "wig_cpu.wig"),
+        "halWiggleLiftover")
+    log("  halWiggleLiftover %s -> %s (%d positions): %d bytes, --device "
+        "cuda %.1fs equal to --device cpu %.1fs; launches %s"
+        % (src2, tgt2, n_pos, n, t_cuda, t_cpu, c))
+    log("phase 5 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return launches
+
+
+def build_maf_alignment(n_segments: int, seed: int = 11):
+    """bench.py's MAF fixture (bench_hal2maf): 10 genomes of n_segments
+    segments of 128-129 bp, with DNA."""
+    from hal_tpu_torch.randgen import create_random_alignment
+
+    return create_random_alignment(
+        seed=seed, max_genomes=N_GENOMES, min_genomes=N_GENOMES - 1,
+        mean_degree=1.5, max_branch_length=0.2, min_segment_length=128,
+        max_segment_length=129, min_segments=n_segments,
+        max_segments=n_segments + 100, fast_dna=True)
+
+
+def phase_maf(dev, tmp) -> dict:
+    """The device column engine at bench scale through the native
+    assembler, then the hal2maf CLI.  Returns the kernels' launches on the
+    first MAF window."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.ops.column_native import NativeMafExporter
+    from hal_tpu_torch.ops.column_torch import DeviceColumnEngine, run_program
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    aln = build_maf_alignment(MAF_SEGMENTS)
+    # bench.py's reference: the first leaf of at least 100 Mb
+    min_len = min(100 * 10 ** 6, 96 * MAF_SEGMENTS)
+    ref = [n for n in aln.genome_names() if aln.tree.is_leaf(n)
+           and aln.open_genome(n).length >= min_len][0]
+    glen = int(aln.open_genome(ref).length)
+    log("phase 6 device MAF fixture: %d genomes of %d segments, ref %s "
+        "%.1f Mb, in %.1fs" % (aln.num_genomes, MAF_SEGMENTS, ref, glen / 1e6,
+                               time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    eng = DeviceColumnEngine(aln, ref, device=dev)
+    log("  engine: %d programs, %d distinct levels (%d program levels), "
+        "dtype %s, in %.1fs"
+        % (len(eng.jobs), len(eng.levels),
+           sum(len(j[1].ops) for j in eng.jobs), eng.dtype.name,
+           time.perf_counter() - t0))
+    W = MAF_WINDOW
+    if glen < (MAF_TIMED_WINDOWS + 1) * W:
+        raise AssertionError("reference too short for %d windows"
+                             % (MAF_TIMED_WINDOWS + 1))
+    t0 = time.perf_counter()
+    ex_dfs = NativeMafExporter(aln, ref)
+    want = ex_dfs.export(0, W) + ex_dfs.finish()
+    ex_dfs.close()
+    t_dfs = time.perf_counter() - t0
+    ex = NativeMafExporter(aln, ref)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    got = eng.export_native(ex, 0, W) + ex.finish()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launches = K.launches()
+    check_launched(launches, "device MAF")
+    ex.close()
+    if got != want:
+        raise AssertionError("device MAF != native DFS MAF on [0, %d) (%d vs "
+                             "%d bytes)" % (W, len(got), len(want)))
+    log("  window [0, %d): %.1f MB MAF byte-equal to the native DFS engine "
+        "(DFS %.2fs; device engine, first window incl. host sizing, %.2fs); "
+        "launches per window %s" % (W, len(want) / 1e6, t_dfs, t_first,
+                                    launches))
+
+    # e2e: dispatch, drain, host decode and native assembly per window
+    ex = NativeMafExporter(aln, ref)
+    stages = {"size+dispatch": 0.0, "device wait": 0.0, "drain": 0.0,
+              "decode": 0.0, "assemble": 0.0}
+    nbytes = 0
+    windows = [(k * W, (k + 1) * W) for k in range(1, MAF_TIMED_WINDOWS + 1)]
+    torch.cuda.synchronize()
+    t_e2e = time.perf_counter()
+    for gs, ge in windows:
+        t0 = time.perf_counter()
+        big, tots, ovf, oc_all = eng.dispatch_window_packed(gs, ge)
+        t1 = time.perf_counter()
+        if bool(ovf.item()):  # beyond the first window's caps: exact re-size
+            for ji in range(len(eng.jobs)):
+                eng._caps[(ji, ge - gs)] = eng._size(ji, gs, ge, slack=1.0)
+            big, tots, ovf, oc_all = eng.dispatch_window_packed(gs, ge)
+            if bool(ovf.item()):
+                raise AssertionError("MAF window overflow under exact sizing")
+        t2 = time.perf_counter()
+        big_np, tots_np = big.cpu().numpy(), tots.cpu().numpy()
+        t3 = time.perf_counter()
+        frags = eng.collect_packed(big_np, tots_np, oc_all, gs, ge)
+        t4 = time.perf_counter()
+        nbytes += len(ex.export_frags(gs, ge, frags))
+        t5 = time.perf_counter()
+        for k, a, b in (("size+dispatch", t0, t1), ("device wait", t1, t2),
+                        ("drain", t2, t3), ("decode", t3, t4),
+                        ("assemble", t4, t5)):
+            stages[k] += b - a
+    nbytes += len(ex.finish())
+    e2e_s = time.perf_counter() - t_e2e
+    ex.close()
+    cols = MAF_TIMED_WINDOWS * W
+    # device phase: dispatch + one scalar sync per window (sized already)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for gs, ge in windows:
+        _big, _tots, ovf, _oc = eng.dispatch_window_packed(gs, ge)
+        if bool(ovf.item()):
+            raise AssertionError("MAF window overflow in the device phase")
+    dev_s = time.perf_counter() - t0
+    log("  %d windows of %d columns: e2e %.3fs -> %.4g columns/s (%.1f MB "
+        "MAF); device phase %.3fs -> %.4g columns/s; e2e stages (s): %s"
+        % (MAF_TIMED_WINDOWS, W, e2e_s, cols / e2e_s, nbytes / 1e6, dev_s,
+           cols / dev_s, {k: round(v, 4) for k, v in stages.items()}))
+    gs, ge = windows[0]
+    stats = {}
+    dev_ms, rows = device_ms(lambda: eng.dispatch_window_packed(gs, ge),
+                             iters=2, stats=stats)
+    cat = profile_categories(rows)
+    win_s = dev_s / MAF_TIMED_WINDOWS
+    log("  profile window: %.3f ms device (hand kernels %.3f, scatters %.3f, "
+        "other %.3f) in %d device launches, against %.3f ms host clock per "
+        "window in the device phase: device idle %.0f%%, %.1f us of host "
+        "per launch; top: %s"
+        % (dev_ms, cat["kernels"], cat["scatter"], cat["other"],
+           stats["launches"], 1e3 * win_s, 100 * (1 - dev_ms / (1e3 * win_s)),
+           1e6 * win_s / stats["launches"],
+           "; ".join("%s %.3f" % (k[:40], ms) for k, ms in rows[:5])))
+    log("  host profile of a window's dispatch (own ms/calls): %s"
+        % host_profile(lambda: eng.dispatch_window_packed(gs, ge)[2].item()))
+    lo, hi = eng._window(gs, ge)
+    per = []
+    for ji, (t, spec, levels, meta) in enumerate(eng.jobs):
+        caps, oc = eng._caps[(ji, ge - gs)]
+        ms, _rows = device_ms(lambda: run_program(levels, lo, hi, caps,
+                                                  meta, oc), iters=2)
+        per.append((ms, t, spec.ordinal, len(spec.ops)))
+    per.sort(reverse=True)
+    log("  device ms per program (largest first; target, ordinal, levels): "
+        "%s; sum %.3f ms"
+        % ("; ".join("%.3f %s/%d/%d" % p for p in per[:8]),
+           sum(p[0] for p in per)))
+    del eng, aln
+    torch.cuda.empty_cache()
+
+    from hal_tpu_torch.storage import save_alignment
+    from hal_tpu_torch.tools import hal2maf
+
+    small = build_maf_alignment(1 << 14, seed=12)
+    hal = os.path.join(tmp, "maf.halz")
+    save_alignment(small, hal, fmt="halz")
+    ref2 = [n for n in small.genome_names() if small.tree.is_leaf(n)][0]
+    n, t_cuda, t_cpu, c = cli_bytes_equal(
+        hal2maf.run, lambda out: [hal, out, "--refGenome", ref2],
+        os.path.join(tmp, "cuda.maf"), os.path.join(tmp, "cpu.maf"),
+        "hal2maf")
+    log("  hal2maf --refGenome %s (%.1f Mb, %d genomes): %d bytes, --device "
+        "cuda %.1fs equal to --device cpu %.1fs; launches %s"
+        % (ref2, small.open_genome(ref2).length / 1e6, small.num_genomes, n,
+           t_cuda, t_cpu, c))
+    log("phase 6 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "hal_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -769,12 +1210,24 @@ def main() -> int:
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
     phase_build()
+    t0 = time.perf_counter()
     rec = phase_kernels(dev)
+    log("phase 2 passed in %.1fs" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
     bench = phase_bench_scale(dev)
+    log("phase 3 passed in %.1fs" % (time.perf_counter() - t0))
     with tempfile.TemporaryDirectory() as tmp:
-        counts = phase_main_path(dev, bench, tmp)
+        t0 = time.perf_counter()
+        cli = cli_fixture(tmp)
+        counts = phase_main_path(dev, bench, tmp, cli)
+        log("phase 4 passed in %.1fs" % (time.perf_counter() - t0))
+        paths = {"liftover": counts,
+                 "depth": phase_depth(dev, bench, tmp, cli)}
+        del bench
+        paths["maf"] = phase_maf(dev, tmp)
     for name, c in counts.items():
         rec[name]["launches"] = c
+        rec[name]["launches_by_path"] = {p: n[name] for p, n in paths.items()}
     log("all phases passed in %.1fs" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [rec[k] for k in ("searchsorted_right",
                                                    "cumsum_i32",

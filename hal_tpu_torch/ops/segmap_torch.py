@@ -276,6 +276,40 @@ def build_down_level(aln: Alignment, cur: str, nxt: str, rings: bool,
         max_ring, pt, ps, device)
 
 
+def build_selfring_level(aln: Alignment, cur: str, dtype, *,
+                         device) -> Level:
+    """Self-ring level of the column engine (ops.column_torch): split
+    fragments at `cur`'s TOP grid, identity link (dst = own segment), ring
+    CSR keyed by the fragment's OWN top segment — the reference's
+    toNextParalogy walk from the segment itself (halColumnIterator.cpp:
+    642-682 updateNextTopDup).  The caller drops the pass-through base
+    fragments after the expansion (members only)."""
+    g = aln.open_genome(cur)
+    nt = g.num_top_segments
+    np_dtype = tables._np_dtype_of(dtype)
+    rc = np.zeros(nt, np.int64)
+    ro = np.zeros(nt, np.int64)
+    rm = np.zeros(0, np.int64)
+    rf = np.zeros(0, np.uint8)
+    max_ring = 0
+    if g.top_paralogy.shape[0] and (g.top_paralogy != NULL_INDEX).any():
+        rc, ro, rm, rf = tables._build_ring_csr(g.top_paralogy,
+                                                g.top_parent_reversed)
+        max_ring = int(rc.max()) + 1
+    mem = rm.astype(np.int64)
+    pt, ps = _pages(g.top_start)
+    return _level(
+        "down", np.asarray(g.top_start).astype(np_dtype),
+        tables._seg_tab(np_dtype, g.top_start, np.arange(nt, dtype=np.int64),
+                        np.zeros(nt, np.int64), g.top_start[:nt], rc[:nt],
+                        ro[:nt]),
+        tables._pack4(np_dtype,
+                      g.top_start[mem] if len(mem) else mem,
+                      g.top_start[mem + 1] if len(mem) else mem,
+                      rf.astype(np.int64)),
+        max_ring, pt, ps, device)
+
+
 # --------------------------------------------------------------------------
 # fixed-capacity building blocks
 # --------------------------------------------------------------------------
@@ -412,6 +446,28 @@ def _ring_expand(level: Level, F, ring_counts, ring_offsets, cap_out):
         [R[0], R[1], nlo, nlo + ln, R[4] ^ flip, R[5], v.to(dt),
          torch.zeros_like(nlo)], dim=0)
     return torch.cat([F, F2], dim=1), total, total > cap_out
+
+
+# the most slots of a scatter's spare region
+SPARE = 1 << 16
+
+
+def spare_width(n_rows: int) -> int:
+    """Slots of the spare region behind a scatter of n_rows rows (a power
+    of two)."""
+    return min(SPARE, tables._next_pow2(n_rows))
+
+
+def spare_index(keep, idx, n_kept: int):
+    """idx where keep, else the slot n_kept + (row index mod
+    spare_width(rows)) of a spare region that the caller allocates past
+    its n_kept slots and cuts off (int64).  It stands for the JAX
+    package's mode="drop" and zero-valued scatters: consecutive dropped
+    rows write consecutive spare slots, so no address takes a write from
+    every dropped row, as one shared spare slot would."""
+    j = torch.arange(idx.shape[0], dtype=torch.int64, device=idx.device)
+    w = spare_width(idx.shape[0])
+    return torch.where(keep, idx.to(torch.int64), n_kept + (j & (w - 1)))
 
 
 def _final_bound(F):

@@ -1,7 +1,9 @@
 """The port's copies of hal_tpu's host modules (hal_tpu_torch.{alignment,
-genome, tree, dna, randgen, storage, io.bed, ops.segmap_host, ops.liftover,
-ops.liftover_bulk, tools}) against their originals on seeded fixtures.
-Tolerance: exact equality (arrays, trees, records and bytes)."""
+genome, tree, dna, randgen, storage, io.bed, io.maf_io, io.wiggle, native,
+ops.segmap_host, ops.liftover, ops.liftover_bulk, ops.column, ops.poscache,
+ops.column_native, tools} and the host half of ops.column_torch) against
+their originals on seeded fixtures.  Tolerance: exact equality (arrays,
+trees, records and bytes)."""
 
 import dataclasses
 import io
@@ -181,3 +183,183 @@ def test_bulk_host_halves_equal_original():
         assert len(runs[0])
         assert all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in
                    zip(runs, jax_bulk.extract_runs_bulk(tg, *want, scale)))
+
+
+# ------------------------------------------------ column / MAF / wiggle
+
+MAF_FIXTURE = dict(seed=11, max_genomes=7, min_genomes=5, min_segments=6,
+                   max_segments=30, min_segment_length=3, max_segment_length=12)
+
+
+def _maf_text(pkg_column, pkg_maf, aln, ref, slice_kw, builder_kw):
+    out = io.StringIO()
+    pkg_maf.write_header(out, aln)
+    b = pkg_maf.MafBlockBuilder(aln, ref, ucsc_names=True, **builder_kw)
+    g = aln.open_genome(ref)
+    for gs in range(0, int(g.length), 40):  # windows through one builder
+        ge = min(gs + 40, int(g.length))
+        for block in b.feed(pkg_column.iter_slices_exact(aln, ref, gs, ge,
+                                                         **slice_kw)):
+            out.write(block + "\n")
+    t = b.flush_end()
+    if t:
+        out.write(t + "\n")
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("slice_kw,builder_kw", [
+    ({}, {}), (dict(no_dupes=True), {}), (dict(unique=True), {}),
+    (dict(max_ref_gap=5), dict(keep_empty_ref_blocks=False)),
+    (dict(only_orthologs=True, no_ancestors=True), dict(max_block_len=9)),
+    ({}, dict(print_tree=True))],
+    ids=["default", "noDupes", "unique", "maxRefGap", "orthologs",
+         "printTree"])
+def test_exact_column_engine_and_maf_equal_original(slice_kw, builder_kw):
+    """ops.column (iter_slices_exact, its position cache ops.poscache, the
+    gene trees of --printTree) with io.maf_io's builder and header emit the
+    originals' MAF text, leaf and root references."""
+    from hal_tpu.io import maf_io as jax_maf
+    from hal_tpu.ops import column as jax_column
+    from hal_tpu_torch.io import maf_io as port_maf
+    from hal_tpu_torch.ops import column as port_column
+
+    port = create_random_alignment(**MAF_FIXTURE)
+    ref_aln = jax_random_alignment(**MAF_FIXTURE)
+    leaves = [n for n in port.genome_names() if port.tree.is_leaf(n)]
+    for ref in (leaves[0], port.root_name):
+        got = _maf_text(port_column, port_maf, port, ref, slice_kw,
+                        builder_kw)
+        want = _maf_text(jax_column, jax_maf, ref_aln, ref, slice_kw,
+                         builder_kw)
+        assert got == want and "\ns\t" in got, ref
+    assert port_column.compute_scope(port, leaves[0], leaves[1:3]) == \
+        jax_column.compute_scope(ref_aln, leaves[0], leaves[1:3])
+
+
+def test_position_cache_equals_original():
+    from hal_tpu.ops.poscache import PositionCache as JaxCache
+    from hal_tpu_torch.ops.poscache import PositionCache
+
+    rng = np.random.default_rng(6)
+    a, b = PositionCache(), JaxCache()
+    for _ in range(300):
+        lo = int(rng.integers(0, 500))
+        hi = lo + int(rng.integers(1, 20))
+        a.add(lo, hi)
+        b.add(lo, hi)
+        p = int(rng.integers(0, 520))
+        assert (len(a), a.num_intervals()) == (len(b), b.num_intervals())
+        assert a.covers(lo, hi + 1) == b.covers(lo, hi + 1)
+        assert a.contains(p) == b.contains(p)
+        assert a.interval_at(p) == b.interval_at(p)
+        assert list(a.overlaps(p, p + 9)) == list(b.overlaps(p, p + 9))
+        assert a.free_run(p, True) == b.free_run(p, True)
+        assert a.free_run(p, False) == b.free_run(p, False)
+
+
+def test_column_host_twin_equals_original():
+    """column_torch's host half (build_programs, ColumnHostSim with its
+    sizing totals and key spaces, _target_frags_host) equals
+    column_jax's."""
+    from hal_tpu.ops import column_jax as jc
+    from hal_tpu_torch.ops import column_torch as ct
+
+    port = create_random_alignment(**MAF_FIXTURE)
+    ref_aln = jax_random_alignment(**MAF_FIXTURE)
+    ref = [n for n in port.genome_names() if port.tree.is_leaf(n)][0]
+    scope = set(port.genome_names())
+    root = port.root_name
+    ge = int(port.open_genome(ref).length)
+    progs = ct.build_programs(port, ref, scope, root)
+    sim, jsim = ct.ColumnHostSim(port), jc.ColumnHostSim(ref_aln)
+    for specs in progs.values():
+        for spec in specs:
+            got, tot = sim.run(spec, 3, ge, with_totals=True)
+            want, wtot = jsim.run(spec, 3, ge, with_totals=True)
+            assert tot == wtot and sim.key_space(spec) == jsim.key_space(spec)
+            for f in ("s_lo", "t_lo", "ln", "rev", "key"):
+                assert np.array_equal(getattr(got, f), getattr(want, f))
+    got = ct._target_frags_host(sim, progs, 0, ge)
+    want = jc._target_frags_host(jsim, jc.build_programs(ref_aln, ref, scope,
+                                                         root), 0, ge)
+    assert got.keys() == want.keys()
+    for t in got:
+        assert len(got[t]) == len(want[t])
+        for (o, a), (p, b) in zip(got[t], want[t]):
+            assert o == p and np.array_equal(a.key, b.key)
+            assert np.array_equal(a.t_lo, b.t_lo)
+
+
+WIGGLE = ("track type=wiggle_0\n"
+          "fixedStep chrom=chrA start=11 step=3 span=2\n1.5\n-2\n0.25\n"
+          "variableStep chrom=chrB span=3\n5 7\n20 1e-3\n"
+          "fixedStep chrom=chrA start=100\n4\n5\n6\n7\n")
+
+
+def test_wiggle_io_equals_original():
+    """io.wiggle (whole-buffer and line readers, the runs writer) and the
+    native runtime's parse / format entries equal the originals'."""
+    from hal_tpu import native as jax_native
+    from hal_tpu.io import wiggle as jax_wiggle
+    from hal_tpu_torch import native
+    from hal_tpu_torch.io import wiggle
+
+    assert native.available() == jax_native.available()
+    for got, want in (
+            (list(wiggle.read_wiggle(io.StringIO(WIGGLE))),
+             list(jax_wiggle.read_wiggle(io.StringIO(WIGGLE)))),
+            (list(wiggle._read_wiggle_lines(io.StringIO(WIGGLE))),
+             list(jax_wiggle._read_wiggle_lines(io.StringIO(WIGGLE))))):
+        assert len(got) == len(want) == 3
+        for (s, p, v), (s2, p2, v2) in zip(got, want):
+            assert s == s2 and np.array_equal(p, p2) and np.array_equal(v, v2)
+    rng = np.random.default_rng(2)
+    pos = rng.integers(0, 60, 80)
+    vals = np.round(rng.normal(size=80), 4)
+    a, b = io.StringIO(), io.StringIO()
+    wiggle.write_wiggle_runs(a, "chrA", pos, vals)
+    jax_wiggle.write_wiggle_runs(b, "chrA", pos, vals)
+    assert a.getvalue() == b.getvalue() and a.getvalue()
+    if native.available():
+        chunk = b"1.5\n-2\n3e2\n"
+        assert np.array_equal(native.parse_fixed_values(chunk),
+                              jax_native.parse_fixed_values(chunk))
+        assert native.format_wiggle_values(vals) == \
+            jax_native.format_wiggle_values(vals)
+        text = b"chrA\t5\t9\nchrB\t1\t3\nchrZ\t0\t1\n"
+        assert all(np.array_equal(x, y) for x, y in zip(
+            native.parse_bed3(text, ["chrA", "chrB"]),
+            jax_native.parse_bed3(text, ["chrA", "chrB"])))
+
+
+@pytest.mark.parametrize("opts", [{}, dict(max_ref_gap=4), dict(unique=True),
+                                  dict(no_dupes=True, max_block_len=7)],
+                         ids=["default", "maxRefGap", "unique", "noDupes"])
+def test_native_column_exporter_equals_original(opts):
+    """ops.column_native's NativeMafExporter (export, finish, and
+    export_frags from the host twin's keyed fragments) emits the original
+    binding's bytes."""
+    from hal_tpu.ops import column_native as jax_cn
+    from hal_tpu_torch.ops import column_native as port_cn
+    from hal_tpu_torch.ops import column_torch as ct
+
+    if not (port_cn.available() and jax_cn.available()):
+        pytest.skip("native column engine not built")
+    port = create_random_alignment(**MAF_FIXTURE)
+    ref_aln = jax_random_alignment(**MAF_FIXTURE)
+    ref = [n for n in port.genome_names() if port.tree.is_leaf(n)][0]
+    ge = int(port.open_genome(ref).length)
+    ex = port_cn.maybe_native_exporter(port, ref, **opts)
+    jex = jax_cn.maybe_native_exporter(ref_aln, ref, **opts)
+    got = ex.export(0, ge // 2) + ex.export(ge // 2, ge) + ex.finish()
+    want = jex.export(0, ge // 2) + jex.export(ge // 2, ge) + jex.finish()
+    assert got == want and got
+    if not opts:
+        frags = ct._target_frags_host(
+            ct.ColumnHostSim(port),
+            ct.build_programs(port, ref, set(port.genome_names()),
+                              port.root_name), 0, ge)
+        assert ex.export_frags(0, ge, frags) + ex.finish() == \
+            jex.export_frags(0, ge, frags) + jex.finish()
+    ex.close()
+    jex.close()

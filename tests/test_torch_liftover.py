@@ -214,14 +214,21 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 
 def test_port_imports_no_jax():
-    """Every hal_tpu_torch module imports without jax or any module of the
-    JAX package (hal_tpu, hal_tpu.*) entering the process: the port keeps
-    its own copies of the host code it needs."""
+    """Every hal_tpu_torch module — the depth and column engines, their
+    CLIs and host copies included — imports without jax or any module of
+    the JAX package (hal_tpu, hal_tpu.*) entering the process: the port
+    keeps its own copies of the host code it needs."""
     code = ("import sys, pkgutil, importlib, hal_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "hal_tpu_torch.__path__, 'hal_tpu_torch.')]\n"
             "for m in mods: importlib.import_module(m)\n"
             "assert len(mods) >= 20, mods\n"
+            "need = {'hal_tpu_torch.' + m for m in ("
+            "'ops.depth ops.column_torch ops.column ops.column_native "
+            "ops.poscache ops._native_build io.maf_io io.wiggle native "
+            "tools.hal2maf tools.halAlignmentDepth "
+            "tools.halWiggleLiftover').split()}\n"
+            "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
             "assert not bad, bad\n"
@@ -240,7 +247,8 @@ def _names_hal_tpu(text: str) -> bool:
 
 def test_chip_smoke_imports_and_runs_no_hal_tpu():
     """chip_smoke.py neither imports hal_tpu nor jax, nor names hal_tpu in
-    the arguments of any subprocess it starts (read with ast)."""
+    the arguments of any subprocess it starts (read with ast); it imports
+    the port's depth and column engines and their CLIs."""
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = []
     for node in ast.walk(tree):
@@ -249,6 +257,14 @@ def test_chip_smoke_imports_and_runs_no_hal_tpu():
         elif isinstance(node, ast.ImportFrom):
             imported.append(node.module or "")
     assert "torch" in imported and "hal_tpu_torch.ops" in imported
+    # phases 5-6 drive the depth and column engines and their CLIs
+    for mod in ("hal_tpu_torch.ops.column_torch",
+                "hal_tpu_torch.ops.column_native", "hal_tpu_torch.tools"):
+        assert mod in imported, mod
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+             for a in n.names}
+    assert {"depth", "halAlignmentDepth", "halWiggleLiftover", "hal2maf",
+            "_native_build"} <= names, names
     assert not [m for m in imported
                 if m.split(".")[0] in ("hal_tpu", "jax")], imported
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
