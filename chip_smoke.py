@@ -42,14 +42,24 @@ printing its seconds:
      native DFS engine, then six windows timed (device phase and end to
      end), and the hal2maf CLI on a smaller DNA alignment, --device cuda
      bytes equal to --device cpu.
-Phases 4-6 each drive a path with the launch counts set to 0 just before
-and read just after; every kernel must launch on every path.
+  7. the phyloP fit: phylop_lnl against lnl_plain (max relative error
+     1e-5) and the 241-leaf CONACC fit of 2^20 simulated patterns, kernel
+     (three calls) against the plain version (once), scored on a 2^14
+     subsample and against the float64 numpy fit on 1,024 (the float32
+     tolerance of tests/test_phylop_jax.py), the other modes and the
+     subtree fit on a 16-leaf tree; then PhyloPScorer(device="cuda") over
+     two 2^20-column windows of phase 6's MAF fixture, against
+     device="cpu" on [0, 2^16), and the halPhyloP CLI on 2^18 columns of
+     phase 6's CLI alignment, --device cuda against --device cpu.
+Phases 4-7 each drive a path with the launch counts set to 0 just before
+and read just after; the three Pallas kernels' ports must launch on every
+path, and phylop_fit on the phyloP path.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+The last lines are the four kernels' JSON record, the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -80,21 +90,45 @@ WIG_BLOCKS = 400
 MAF_SEGMENTS = 1 << 20
 MAF_WINDOW = 1 << 21
 MAF_TIMED_WINDOWS = 6
+PHYLOP_LEAVES = 241          # the 241-mammal phyloP runs on Cactus alignments
+PHYLOP_PATTERNS = 1 << 20    # one window of columns, nearly all unique
+PHYLOP_SCORED = 1 << 14
+PHYLOP_EXACT = 1024
+PHYLOP_SMALL_LEAVES = 16
+PHYLOP_SMALL_PATTERNS = 1 << 14
+PHYLOP_WINDOW = 1 << 20      # halPhyloP's WINDOW
+PHYLOP_CPU_COLUMNS = 1 << 16
+PHYLOP_CLI_COLUMNS = 1 << 18
+# The subtree fit's 4 alternating rounds stop short of convergence on a
+# ridge of (scale, subtree scale), so its float32 result depends on
+# rounding: the JAX package's float32 program and the port's plain float32
+# fit put up to 1% of a 16-leaf tree's patterns outside the float32
+# tolerance (tests/test_torch_phylop.py::test_f32_subtree_fit_agrees_with_jax_f32).
+SUBTREE_F32_SHARE = 0.01
 
 # H100 SXM data sheet: HBM bytes/s; 32-bit non-tensor operations/s (the
 # float32 rate, the table's rate for 32-bit ALU work)
 HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
+# special-function results (exp, log): 16 a clock per SM (NVIDIA's
+# arithmetic throughput table for compute capability 9.0) x 132 SMs x
+# 1.98 GHz
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+# the three Pallas kernels' ports, required on every path
+PALLAS_PORTS = ("searchsorted_right", "cumsum_i32", "cummax_i32")
 
 REPLACES = {
     "searchsorted_right": "hal_tpu/ops/pallas_kernels.py:52",
     "cumsum_i32": "hal_tpu/ops/pallas_kernels.py:186",
     "cummax_i32": "hal_tpu/ops/pallas_kernels.py:185",
+    "phylop_fit": "hal_tpu/phylop_jax.py:166",
 }
 SOURCES = {
     "searchsorted_right": "hal_tpu_torch/csrc/searchsorted.cu",
     "cumsum_i32": "hal_tpu_torch/csrc/scan.cu",
     "cummax_i32": "hal_tpu_torch/csrc/scan.cu",
+    "phylop_fit": "hal_tpu_torch/csrc/phylop_fit.cu",
 }
 
 
@@ -173,8 +207,11 @@ def phase_build() -> None:
     _build.library()
     log("phase 1 build: %s %s in %.2fs"
         % (os.path.relpath(so, REPO),
-           "found, not rebuilt" if found else "built with nvcc",
+           "found, not rebuilt" if found else
+           "built with one nvcc per source, in parallel",
            time.perf_counter() - t0))
+    for line in _build.BUILD_LOG:
+        log("  " + line)
     # the native host libraries, built for this machine's CPU by their
     # bindings at first load (the tracked native/*.so are built with
     # -march=native elsewhere)
@@ -658,10 +695,7 @@ def phase_bench_scale(dev):
     counts = K.launches()
     log("  first run: %d fragments == host final, %d runs, launches %s"
         % (n_frag, int(total.item()), counts))
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError("kernel %s not launched at bench scale: %s"
-                                 % (name, counts))
+    check_launched(counts, "bench-scale liftover")
     lookup_vs_paged(st, path, lo_d, hi_d, own_d, caps, F)
 
     def seq_of(p):
@@ -781,10 +815,7 @@ def phase_main_path(dev, bench, tmp, cli) -> dict:
         "cuda %.1fs; launches %s (bulk_runs_device %s, the CLI %s)"
         % (t_bulk, t_cli, counts, bulk_counts,
            {k: c - bulk_counts[k] for k, c in counts.items()}))
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError("kernel %s was not launched on the main "
-                                 "path" % name)
+    check_launched(counts, "liftover main")
 
     if res is None:
         raise AssertionError("bulk_runs_device fell off the wire path")
@@ -857,9 +888,10 @@ def profile_categories(rows) -> dict:
     return out
 
 
-def check_launched(counts: dict, path: str) -> None:
-    for name, c in counts.items():
-        if c <= 0:
+def check_launched(counts: dict, path: str, names=PALLAS_PORTS) -> None:
+    """Every kernel of the path (names) launched at least once."""
+    for name in names:
+        if counts[name] <= 0:
             raise AssertionError("kernel %s was not launched on the %s path: "
                                  "%s" % (name, path, counts))
 
@@ -1047,10 +1079,11 @@ def build_maf_alignment(n_segments: int, seed: int = 11):
         max_segments=n_segments + 100, fast_dna=True)
 
 
-def phase_maf(dev, tmp) -> dict:
+def phase_maf(dev, tmp) -> tuple:
     """The device column engine at bench scale through the native
     assembler, then the hal2maf CLI.  Returns the kernels' launches on the
-    first MAF window."""
+    first MAF window, and (the MAF fixture, its reference, the CLI's halz,
+    its reference) for phase 7."""
     import torch
 
     from hal_tpu_torch.ops import kernels as K
@@ -1174,7 +1207,7 @@ def phase_maf(dev, tmp) -> dict:
         "%s; sum %.3f ms"
         % ("; ".join("%.3f %s/%d/%d" % p for p in per[:8]),
            sum(p[0] for p in per)))
-    del eng, aln
+    del eng
     torch.cuda.empty_cache()
 
     from hal_tpu_torch.storage import save_alignment
@@ -1193,7 +1226,428 @@ def phase_maf(dev, tmp) -> dict:
         % (ref2, small.open_genome(ref2).length / 1e6, small.num_genomes, n,
            t_cuda, t_cpu, c))
     log("phase 6 passed in %.1fs" % (time.perf_counter() - t_phase))
-    return launches
+    return launches, (aln, ref, hal, ref2)
+
+
+def seeded_model(n_leaves: int, seed: int):
+    """A seeded binary tree of n_leaves leaves (random joins of two
+    subtrees, branch lengths ~ Exp(0.05) + 0.005) under a seeded GTR rate
+    matrix, as the port's NeutralModel."""
+    from hal_tpu_torch.tree import Tree
+
+    rng = np.random.default_rng(seed)
+    nodes = ["S%03d:%.4f" % (k, 0.005 + rng.exponential(0.05))
+             for k in range(n_leaves)]
+    k = 0
+    while len(nodes) > 1:
+        i, j = sorted(rng.choice(len(nodes), 2, replace=False))
+        b, a = nodes.pop(j), nodes.pop(i)
+        bl = "" if len(nodes) == 0 else ":%.4f" % (0.005 + rng.exponential(0.05))
+        nodes.append("(%s,%s)N%03d%s" % (a, b, k, bl))
+        k += 1
+    tree = Tree.from_newick(nodes[0] + ";")
+    return gtr_model(tree, rng)
+
+
+def gtr_model(tree, rng):
+    """The port's NeutralModel of a seeded GTR matrix (Dirichlet(8)
+    background, exchangeabilities U(0.5, 3), one expected substitution per
+    unit time) on tree."""
+    from hal_tpu_torch.phylop import NeutralModel
+
+    bg = rng.dirichlet(np.full(4, 8.0))
+    S = np.zeros((4, 4))
+    S[np.triu_indices(4, 1)] = rng.uniform(0.5, 3.0, 6)
+    S = S + S.T
+    Q = S * bg[None, :]
+    np.fill_diagonal(Q, -Q.sum(axis=1))
+    Q = Q / -(np.diag(Q) * bg).sum()
+    bl = {n: tree.branch_length(n) for n in tree.names()
+          if tree.parent(n) is not None}
+    mod = NeutralModel(background=bg, rate_matrix=Q, tree=tree,
+                       branch_length=bl)
+    mod._decompose()
+    return mod
+
+
+def mod_text(mod) -> str:
+    rows = "\n".join("  " + " ".join("%.12f" % v for v in r)
+                     for r in mod.rate_matrix)
+    return ("ALPHABET: A C G T \nORDER: 0\nSUBST_MOD: REV\n"
+            "BACKGROUND: %s \nRATE_MAT:\n%s\nTREE: %s\n"
+            % (" ".join("%.12f" % b for b in mod.background), rows,
+               mod.tree.to_newick()))
+
+
+def simulate_codes(dev_fit, npat: int, seed: int, device):
+    """(nleaf, npat) uint8 codes in the fit's leaf order, simulated down the
+    tree on the card: the root state from the background, each branch by
+    P(bl * scale) with per-column scales U(0.1, 3); then the last eighth
+    replaced by uniform codes (saturated columns) and ~20% of all codes
+    set to 4 (missing)."""
+    import torch
+
+    mod = dev_fit.model
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=device)
+    U = torch.as_tensor(mod._U, **kw)
+    Uinv = torch.as_tensor(mod._Uinv, **kw)
+    lam = torch.as_tensor(mod._lam, **kw)
+    scale = 0.1 + 2.9 * torch.rand(npat, generator=g, **kw)
+    cum = torch.cumsum(torch.as_tensor(mod.background, **kw), 0)
+    state = {mod.tree.root: torch.searchsorted(
+        cum, torch.rand(npat, generator=g, **kw)).clamp(max=3)}
+    for name in mod.tree.preorder():
+        for c in mod.tree.children(name):
+            t = mod.branch_length[c] * scale
+            e = torch.exp(t[:, None] * lam[None, :])
+            row = (U[state[name]] * e) @ Uinv       # P(t)[parent, :]
+            u = torch.rand(npat, 1, generator=g, **kw)
+            state[c] = (torch.cumsum(row.clamp(min=0), 1) < u).sum(1).clamp(max=3)
+        if mod.tree.children(name):
+            del state[name]
+    codes = torch.stack([state[n] for n in dev_fit._leaves]).to(torch.uint8)
+    sat = npat - npat // 8
+    codes[:, sat:] = torch.randint(0, 4, (codes.shape[0], npat - sat),
+                                   generator=g, device=device,
+                                   dtype=torch.uint8)
+    miss = torch.rand(codes.shape, generator=g, device=device) < 0.2
+    codes[miss] = 4
+    return codes.contiguous()
+
+
+def phylop_work(prog, subtree: bool) -> tuple:
+    """(FP32 operations, special-function operations) of one fit per
+    pattern, counted from the program: per edge the branch time (1, or 2
+    on a subtree branch), lam * t (4), the exps (4 SFU), their product
+    (4), Uinv @ L for an internal child (16 FMA = 32), U @ w (32), the
+    clip (4) and the product into the parent (4, not for its first
+    child); per node its max (3), guard (1), the four divisions (4) and the
+    log-scale sum (1), its log on the SFU; the root's dot (7), clamp (1)
+    and sum (1) and log; 8 per golden iteration.  A fit is 100
+    evaluations, 900 with a subtree."""
+    flops = sfu = 0
+    for _slot, kids in prog.nodes:
+        for k, (leaf, _i, _bl, in_sub) in enumerate(kids):
+            flops += (2 if in_sub else 1) + 4 + 4 + (0 if leaf else 32) \
+                + 32 + 4 + (4 if k else 0)
+            sfu += 4
+        flops += 9
+        sfu += 1
+    flops += 9
+    sfu += 1
+    evals, iters = (900, 450) if subtree else (100, 50)
+    return evals * flops + 8 * iters, evals * sfu
+
+
+def scores_agree(got, want, mode, what, max_share: float = 0.0) -> float:
+    """The float32 tolerance of tests/test_phylop_jax.py: off the CON/ACC
+    point mass (both |score| <= 0.32) |d| < 2e-2, and a CONACC sign flips
+    only where |score| < 0.05.  max_share is the share of patterns allowed
+    outside it: 0, except for the subtree fit, whose float32 result depends
+    on rounding (SUBTREE_F32_SHARE).  Returns the largest |d| of the
+    patterns inside it, off the point mass."""
+    d = np.abs(got - want)
+    point = np.zeros(len(d), bool)
+    if mode in ("CON", "ACC"):
+        point = (np.abs(want) <= 0.32) & (np.abs(got) <= 0.32)
+    flip = (np.sign(got) != np.sign(want)) & ~point
+    bad = np.where(flip, np.abs(want) >= 0.05, d >= 2e-2) & ~point
+    share = float(bad.mean()) if len(d) else 0.0
+    worst = float(d[~point & ~flip & ~bad].max(initial=0.0))
+    msg = ("%s: %d scores, max |d| %.2e off the CON/ACC point mass (%d "
+           "there), %d CONACC sign flips; %d (%.3f%%) outside the float32 "
+           "tolerance (%.1f%% allowed; largest |d| %.3g, flips up to "
+           "|score| %.3g)"
+           % (what, len(d), worst, int(point.sum()), int(flip.sum()),
+              int(bad.sum()), 100 * share, 100 * max_share,
+              float(d[bad].max(initial=0.0)),
+              float(np.abs(want[flip]).max(initial=0.0))))
+    if share > max_share:
+        raise AssertionError(msg)
+    log("  " + msg)
+    return worst
+
+
+def event_s(fn) -> tuple:
+    """(seconds on the device timeline between CUDA events around fn,
+    fn's result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / 1e3, out
+
+
+def phylop_kernel_checks(dev) -> dict:
+    """phylop_fit and phylop_lnl against the plain version on the card: the
+    241-leaf CONACC fit at 2^20 patterns timed, its scores on a 2^14
+    subsample and the float64 numpy fit on 1,024; the other modes and the
+    subtree fit on a 16-leaf tree.  Returns phylop_fit's record."""
+    import torch
+
+    from hal_tpu_torch.ops import phylop_fit as pf
+    from hal_tpu_torch.phylop import score_patterns
+    from hal_tpu_torch.phylop_torch import DevicePhyloP
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain fp32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    mod = seeded_model(PHYLOP_LEAVES, 71)
+    leaves = [n for n in mod.tree.postorder() if mod.tree.is_leaf(n)]
+    li = {n: i for i, n in enumerate(leaves)}
+    fit = DevicePhyloP(mod, li, "CONACC", device=dev)
+    prog = fit.program()
+    n = PHYLOP_PATTERNS
+    codes = simulate_codes(fit, n, 72, dev)
+    log("phase 7 phyloP kernel: %d-leaf seeded tree (%d edges, %d slots), "
+        "%d simulated patterns (%d unique of the first 2^16)"
+        % (len(leaves), prog.edges.shape[0], prog.n_slots, n,
+           len(np.unique(codes[:, :1 << 16].t().cpu().numpy(), axis=0))))
+
+    # the likelihood function itself, at seeded scales
+    rng = np.random.default_rng(73)
+    s = torch.from_numpy(rng.uniform(0.1, 3.0, n)).float().to(dev)
+    ss = torch.from_numpy(rng.uniform(0.5, 2.0, n)).float().to(dev)
+    got = pf.phylop_lnl(codes, s, ss, prog)
+    want = pf.lnl_plain(codes, s, ss, prog)
+    lnl_abs = float((got - want).abs().max().item())
+    lnl_rel = float(((got - want).abs() / want.abs().clamp(min=1)).max().item())
+    if not (bool(torch.isfinite(got).all()) and lnl_rel <= 1e-5):
+        raise AssertionError("phylop_lnl != lnl_plain: max rel err %.3g"
+                             % lnl_rel)
+    log("  phylop_lnl vs lnl_plain (%d patterns): max rel err %.2e, max abs "
+        "err %.2e (lnl %.1f .. %.1f)" % (n, lnl_rel, lnl_abs,
+                                        float(want.min()), float(want.max())))
+
+    # the fit: kernel, plain (once), kernel, kernel
+    k_s = []
+    t, fk = event_s(lambda: pf.phylop_fit(codes, prog, "CONACC"))
+    k_s.append(t)
+    t_plain, fp = event_s(lambda: pf.fit_plain(codes, prog, "CONACC", False))
+    for _ in range(2):
+        t, out = event_s(lambda: pf.phylop_fit(codes, prog, "CONACC"))
+        k_s.append(t)
+        if not torch.equal(out[1], fk[1]):
+            raise AssertionError("phylop_fit is not deterministic")
+    flops, sfu = phylop_work(prog, False)
+    nbytes = codes.numel() + 12 * n + prog.edges.numel() * 4
+    b_bytes = nbytes / HBM_BYTES_PER_S
+    b_ops = n * flops / ALU32_OPS_PER_S
+    b_sfu = n * sfu / SFU_OPS_PER_S
+    bound = max(b_bytes, b_ops, b_sfu)
+    ms = 1e3 * float(np.median(k_s))
+    log("  time phylop_fit (%d leaves x %d patterns, CONACC): kernel %s ms "
+        "(median %.1f), plain %.1f ms once; bound %.1f ms by %s (FP32 %.3g "
+        "ops -> %.1f ms, SFU %.3g ops -> %.1f ms, bytes %.3g -> %.3f ms), "
+        "kernel at %.0f%% of it"
+        % (len(leaves), n, [round(1e3 * x, 1) for x in k_s], ms,
+           1e3 * t_plain, 1e3 * bound,
+           "SFU operations" if b_sfu >= b_ops else "FP32 operations",
+           n * flops, 1e3 * b_ops, n * sfu, 1e3 * b_sfu, nbytes, 1e3 * b_bytes,
+           100 * 1e3 * bound / ms))
+
+    # scores of a subsample of both fits, and of the float64 numpy fit
+    sub = np.sort(np.random.default_rng(74).choice(n, PHYLOP_SCORED,
+                                                   replace=False))
+    pats = codes[:, torch.from_numpy(sub).to(dev)].t().cpu().numpy().astype(np.int64)
+    t0 = time.perf_counter()
+    sk = fit.scores_at(pats, *(x[sub].cpu().double().numpy() for x in fk))
+    sp = fit.scores_at(pats, *(x[sub].cpu().double().numpy() for x in fp))
+    t_host = time.perf_counter() - t0
+    worst = scores_agree(sk, sp, "CONACC",
+                         "kernel vs plain fit, %d leaves" % len(leaves))
+    t0 = time.perf_counter()
+    m = PHYLOP_EXACT
+    exact = score_patterns(mod, li, pats[:m], "CONACC")
+    t_exact = time.perf_counter() - t0
+    scores_agree(sk[:m], exact, "CONACC", "kernel vs float64 numpy fit")
+    scores_agree(sp[:m], exact, "CONACC", "plain vs float64 numpy fit")
+    log("  host float64 re-evaluation: %.2fs for 2 x %d patterns; float64 "
+        "numpy fit of %d patterns %.1fs; scores %.2f .. %.2f"
+        % (t_host, PHYLOP_SCORED, m, t_exact, sk.min(), sk.max()))
+
+    # every mode and the subtree fit on a 16-leaf tree
+    small = seeded_model(PHYLOP_SMALL_LEAVES, 75)
+    sl = [x for x in small.tree.postorder() if small.tree.is_leaf(x)]
+    sli = {x: i for i, x in enumerate(sl)}
+    inner = [x for x in small.tree.postorder() if not small.tree.is_leaf(x)]
+    subtree = frozenset(small.tree.preorder(inner[len(inner) // 2]))
+    for mode, subn in (("CON", None), ("ACC", None), ("NNEUT", None),
+                       ("CONACC", subtree), ("CON", subtree)):
+        f16 = DevicePhyloP(small, sli, mode, subn, device=dev)
+        p16 = f16.program()
+        c16 = simulate_codes(f16, PHYLOP_SMALL_PATTERNS, 76, dev)
+        if subn:
+            got = pf.phylop_lnl(c16, s[:c16.shape[1]].contiguous(),
+                                ss[:c16.shape[1]].contiguous(), p16)
+            want = pf.lnl_plain(c16, s[:c16.shape[1]], ss[:c16.shape[1]], p16)
+            rel = float(((got - want).abs()
+                         / want.abs().clamp(min=1)).max().item())
+            if rel > 1e-5:
+                raise AssertionError("phylop_lnl (subtree) max rel err %.3g"
+                                     % rel)
+        tk, k16 = event_s(lambda: pf.phylop_fit(c16, p16, mode, bool(subn)))
+        tp, q16 = event_s(lambda: pf.fit_plain(c16, p16, mode, bool(subn)))
+        p16n = c16.t().cpu().numpy().astype(np.int64)
+        a = f16.scores_at(p16n, *(x.cpu().double().numpy() for x in k16))
+        b = f16.scores_at(p16n, *(x.cpu().double().numpy() for x in q16))
+        scores_agree(a, b, mode, "16 leaves, %s%s, kernel %.1f ms vs plain "
+                     "%.1f ms" % (mode, " subtree" if subn else "", 1e3 * tk,
+                                  1e3 * tp),
+                     SUBTREE_F32_SHARE if subn else 0.0)
+    return {"name": "phylop_fit", "route": "cuda",
+            "source": SOURCES["phylop_fit"], "replaces": REPLACES["phylop_fit"],
+            "max_abs_err": lnl_abs, "max_abs_err_of": "phylop_lnl vs "
+            "lnl_plain, the fit's likelihood function, %d patterns" % n,
+            "lnl_max_rel_err": lnl_rel, "score_max_abs_diff": worst,
+            "ms": ms, "plain_ms": 1e3 * t_plain, "bound_ms": 1e3 * bound,
+            "bound_by": "operations", "library_ms": None,
+            "shape": "%d leaves x %d patterns, CONACC" % (len(leaves), n)}
+
+
+def phase_phylop(dev, maf, tmp) -> tuple:
+    """The phyloP path: the kernel checks, then PhyloPScorer on the card
+    over two 2^20-column windows of the MAF fixture against the same scorer
+    on the CPU, then the halPhyloP CLI.  Returns (phylop_fit's record, the
+    kernels' launches on the scorer's two windows)."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.phylop import NeutralModel, PhyloPScorer
+
+    t_phase = time.perf_counter()
+    rec = phylop_kernel_checks(dev)
+    log("  kernel checks in %.1fs" % (time.perf_counter() - t_phase))
+
+    aln, ref, small_hal, small_ref = maf
+    mod_path = os.path.join(tmp, "maf.mod")
+    with open(mod_path, "w") as f:
+        f.write(mod_text(gtr_model(aln.tree.copy(), np.random.default_rng(81))))
+    W = PHYLOP_WINDOW
+    K.reset_launches()
+    t0 = time.perf_counter()
+    scorer = PhyloPScorer(aln, NeutralModel.from_mod_file(mod_path),
+                          device="cuda")
+    # set-up: the fit module and the reference's column engine
+    scorer._score_batch(np.zeros((0, len(scorer.species)), np.int64))
+    scorer._window_slices(ref, 0, 0, set(scorer.species) | {ref})
+    t_setup = time.perf_counter() - t0
+    spent = {}
+
+    def timed(obj, name, key, force=False):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if force:  # a generator: do its work here
+                out = list(out)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, name, wrapper)
+
+    timed(scorer, "_window_slices", "columns", force=True)
+    timed(scorer._col_eng[ref], "window_frags", "engine")
+    timed(scorer, "_score_batch", "scoring")
+    timed(scorer._dev, "fit", "fit")
+    patterns = []
+    score_batch = scorer._score_batch
+    scorer._score_batch = lambda p: (patterns.append(len(p)), score_batch(p))[1]
+    windows = []
+    for gs in (0, W):
+        spent.clear()
+        t1 = time.perf_counter()
+        out = scorer.score_window(ref, gs, gs + W)
+        torch.cuda.synchronize()
+        windows.append((out, time.perf_counter() - t1, dict(spent)))
+    launches = K.launches()
+    check_launched(launches, "phyloP", PALLAS_PORTS + ("phylop_fit",))
+    scores = np.concatenate([w for w, _, _ in windows])
+    if scores.shape != (2 * W,) or not np.isfinite(scores).all() or \
+            np.abs(scores).max() > 20.0 + 1e-9:
+        raise AssertionError("phyloP scores: not 2^21 finite values within "
+                             "+-20")
+    t_win = sum(t for _, t, _ in windows)
+    log("  PhyloPScorer(device=cuda), %s, %d species, two %d-column windows: "
+        "%.4g columns/s end to end (set-up %.2fs: fit module and column "
+        "engine); new unique patterns per window %s; launches %s"
+        % (ref, len(scorer.species), W, 2 * W / t_win, t_setup, patterns,
+           launches))
+    for k, (_, t, spent_k) in enumerate(windows):
+        sp = {key: spent_k.get(key, 0.0)
+              for key in ("columns", "engine", "scoring", "fit")}
+        rest = t - sp["columns"] - sp["scoring"]
+        log("    window %d: %.3fs = columns %.3fs (device engine incl. drain "
+            "and decode %.3fs, host slices %.3fs) + the fit %.3fs (%.1f%%: "
+            "device fit incl. copies %.4fs, float64 host re-evaluation and "
+            "p-values %.3fs) + per-base code loop, np.unique and pattern "
+            "cache %.3fs (%.0f%%)"
+            % (k, t, sp["columns"], sp["engine"], sp["columns"] - sp["engine"],
+               sp["scoring"], 100 * sp["scoring"] / t, sp["fit"],
+               sp["scoring"] - sp["fit"], rest, 100 * rest / t))
+    t0 = time.perf_counter()
+    cpu = PhyloPScorer(aln, NeutralModel.from_mod_file(mod_path),
+                       device="cpu").score_window(ref, 0, PHYLOP_CPU_COLUMNS)
+    scores_agree(scores[:PHYLOP_CPU_COLUMNS], cpu, "CONACC",
+                 "scorer cuda vs cpu on [0, %d) (cpu %.1fs)"
+                 % (PHYLOP_CPU_COLUMNS, time.perf_counter() - t0))
+
+    # the CLI on the small DNA alignment: cuda against cpu
+    from hal_tpu_torch.storage import open_alignment
+    from hal_tpu_torch.tools import halPhyloP
+
+    small = open_alignment(small_hal)
+    g = small.open_genome(small_ref)
+    si = int(np.argmax([g.seq_length(i) for i in range(g.num_sequences)]))
+    length = min(PHYLOP_CLI_COLUMNS, g.seq_length(si))
+    small_mod = os.path.join(tmp, "small.mod")
+    with open(small_mod, "w") as f:
+        f.write(mod_text(gtr_model(small.tree.copy(),
+                                   np.random.default_rng(82))))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, "phylop_%s.wig" % device)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        halPhyloP.run([small_hal, small_ref, small_mod, out, "--refSequence",
+                       g.seq_names[si], "--start", "0", "--length",
+                       str(length), "--device", device])
+        torch.cuda.synchronize()
+        outs[device] = (open(out).read().splitlines(),
+                        time.perf_counter() - t0, K.launches())
+    check_launched(outs["cuda"][2], "halPhyloP --device cuda",
+                   PALLAS_PORTS + ("phylop_fit",))
+    if any(outs["cpu"][2].values()):
+        raise AssertionError("halPhyloP --device cpu launched a kernel")
+    a, b = outs["cuda"][0], outs["cpu"][0]
+    heads = [x for x in a if x.startswith("fixedStep")]
+    if heads != [x for x in b if x.startswith("fixedStep")] or len(a) != len(b) \
+            or len(a) != length + 1:
+        raise AssertionError("halPhyloP cuda/cpu: header lines or line counts "
+                             "differ")
+    va = np.array([float(x) for x in a if not x.startswith("fixedStep")])
+    vb = np.array([float(x) for x in b if not x.startswith("fixedStep")])
+    # printed at --prec 3: the float32 tolerance plus one rounding step
+    d = np.abs(va - vb)
+    flip = np.sign(va) != np.sign(vb)
+    if (d[~flip] >= 2e-2 + 1e-3).any() or np.abs(vb[flip]).max(initial=0) >= 0.05:
+        raise AssertionError("halPhyloP cuda/cpu scores disagree (max |d| "
+                             "%.3g)" % d.max())
+    log("  halPhyloP %s %s (%d columns): headers byte-equal, scores within "
+        "the float32 tolerance of --device cpu (max |d| %.3f, %d lines "
+        "differ); cuda %.1fs, cpu %.1fs; launches %s"
+        % (small_ref, g.seq_names[si], length, float(d.max(initial=0)),
+           int((va != vb).sum()), outs["cuda"][1], outs["cpu"][1],
+           outs["cuda"][2]))
+    log("phase 7 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return rec, launches
 
 
 def main() -> int:
@@ -1224,14 +1678,17 @@ def main() -> int:
         paths = {"liftover": counts,
                  "depth": phase_depth(dev, bench, tmp, cli)}
         del bench
-        paths["maf"] = phase_maf(dev, tmp)
-    for name, c in counts.items():
-        rec[name]["launches"] = c
+        paths["maf"], maf = phase_maf(dev, tmp)
+        rec["phylop_fit"], paths["phylop"] = phase_phylop(dev, maf, tmp)
+        del maf
+    for name in PALLAS_PORTS:
+        rec[name]["launches"] = counts[name]
+    rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]
+    for name in rec:
         rec[name]["launches_by_path"] = {p: n[name] for p, n in paths.items()}
     log("all phases passed in %.1fs" % (time.perf_counter() - t_start))
-    print(json.dumps({"kernels": [rec[k] for k in ("searchsorted_right",
-                                                   "cumsum_i32",
-                                                   "cummax_i32")]}))
+    print(json.dumps({"kernels": [rec[k] for k in PALLAS_PORTS
+                                  + ("phylop_fit",)]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()

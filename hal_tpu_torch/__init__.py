@@ -1,4 +1,5 @@
-"""hal_tpu_torch — the batched liftover path of hal_tpu in PyTorch, with
+"""hal_tpu_torch — hal_tpu's device paths (batched liftover, alignment
+depth, the hal2maf column engine, the phyloP fit) in PyTorch, with
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package hal_tpu stays the reference.  This package imports
@@ -21,7 +22,16 @@ hal_tpu's so each counterpart is easy to find:
                         device branches on the torch mapper
   ops/liftover.py       a copy of hal_tpu's Liftover whose
                         convert_batched runs the torch mapper
+  ops/depth.py, ops/column_torch.py
+                        the depth engine and the device column engine
+                        (ops/depth.py, ops/column_jax.py)
+  phylop.py             copy of the phyloP host side; PhyloPScorer runs
+                        its columns and fits on a torch device
+  ops/phylop_fit.py     the fit's edge program, plain version and kernel
+                        wrappers (phylop_jax.py's traced program)
+  phylop_torch.py       DevicePhyloP (phylop_jax.py)
+  parallel/mp.py        copy of the process-parallel helpers
   tools/__init__.py     copy of the tools' parser and error conventions
-  tools/halLiftover.py  the CLI, with --device {cuda,cpu}
+  tools/*.py            the CLIs, with --device {cuda,cpu}
   csrc/*.cu             the CUDA sources, built by ops/_build.py
 """

@@ -1,15 +1,17 @@
 """Build and load the port's CUDA kernels (hal_tpu_torch/csrc/*.cu).
 
-nvcc compiles every source into one shared library with a plain C
-interface for sm_90a (Hopper), and ctypes loads it:
+nvcc compiles each source to an object for sm_90a (Hopper), one process
+per source, all started together, and links them into one shared library
+with a plain C interface that ctypes loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o hal_tpu_torch/build/libhal_kernels_<hash>.so \\
-         hal_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> hal_tpu_torch/csrc/<src>.cu
+    nvcc -shared -o hal_tpu_torch/build/libhal_kernels_<hash>.so <objs>
 
 The build runs at first use and is keyed by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads the library
-already in hal_tpu_torch/build/.  A failed build raises; nothing falls
+already in hal_tpu_torch/build/.  ptxas's register and spill lines of the
+last build are kept in BUILD_LOG.  A failed build raises; nothing falls
 back.  Every C entry returns cudaGetLastError() after its launches.
 """
 
@@ -26,9 +28,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
+BUILD_LOG: list[str] = []
 
 
 def _nvcc() -> str:
@@ -62,15 +65,36 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = "%s.tmp%d" % (so.stem, os.getpid())
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / ("%s.%s.o" % (src.stem, tag))
+        cmd = [nvcc] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)]
+        jobs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = [(obj, cmd, proc.returncode, out + err)
+            for obj, cmd, proc in jobs for out, err in [proc.communicate()]]
     tmp = so.with_suffix(".so.tmp%d" % os.getpid())
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)]
-           + [str(s) for s in _sources()])
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = None
+    if all(rc == 0 for _o, _c, rc, _t in done):
+        cmd = [nvcc, "-shared", "-o", str(tmp)] + [str(o) for o, *_ in done]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj, *_ in done:
+        obj.unlink(missing_ok=True)
+    for _o, ccmd, rc, text in done:
+        if rc != 0:
+            raise RuntimeError("nvcc failed (%d):\n%s\n%s"
+                               % (rc, " ".join(ccmd), text[-4000:]))
     if res.returncode != 0:
         raise RuntimeError("nvcc failed (%d):\n%s\n%s"
                            % (res.returncode, " ".join(cmd),
                               res.stderr[-4000:]))
     os.replace(tmp, so)
+    BUILD_LOG[:] = [line.strip() for _o, _c, _r, text in done
+                    for line in text.splitlines()
+                    if "Compiling entry" in line or "Used" in line
+                    or "spill" in line]
     return so
 
 
@@ -96,5 +120,20 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.hal_scan_tile.argtypes = []
         lib.hal_scan_tile.restype = ll
+        f32 = ctypes.c_float
+        lib.hal_phylop_fit.argtypes = [vp, vp, i32, i32, vp, ll, f32, f32, f32,
+                                       i32, vp, vp, vp, vp]
+        lib.hal_phylop_fit.restype = i32
+        lib.hal_phylop_lnl.argtypes = [vp, vp, i32, i32, vp, ll, vp, vp, vp,
+                                       vp]
+        lib.hal_phylop_lnl.restype = i32
+        for name in ("hal_phylop_max_slots", "hal_phylop_model_words"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        from hal_tpu_torch.ops.phylop_fit import MAX_SLOTS
+
+        if lib.hal_phylop_max_slots() != MAX_SLOTS:
+            raise RuntimeError("csrc/phylop_fit.cu's kMaxSlots differs from "
+                               "phylop_fit.MAX_SLOTS")
         _lib = lib
     return _lib

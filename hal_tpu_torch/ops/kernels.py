@@ -1,5 +1,7 @@
 """Hand-written Hopper kernels of the segment mapper, with their plain
-PyTorch versions — the counterpart of hal_tpu.ops.pallas_kernels.
+PyTorch versions — the counterpart of hal_tpu.ops.pallas_kernels — and the
+registry of every kernel wrapper's launch count (the phyloP fit's wrappers
+live in hal_tpu_torch.ops.phylop_fit).
 
 Each wrapper checks device, dtype and contiguity.  A tensor on the CPU
 takes the plain version; a CUDA tensor launches the CUDA kernel
@@ -17,6 +19,9 @@ import functools
 import threading
 
 import torch
+
+# the phyloP fit's kernel and its likelihood entry (csrc/phylop_fit.cu)
+from hal_tpu_torch.ops.phylop_fit import phylop_fit, phylop_lnl
 
 
 def _check(name: str, t: torch.Tensor) -> None:
@@ -297,7 +302,7 @@ def cummax_i32(x: torch.Tensor) -> torch.Tensor:
 
 cummax_i32.launches = 0
 
-KERNELS = (searchsorted_right, cumsum_i32, cummax_i32)
+KERNELS = (searchsorted_right, cumsum_i32, cummax_i32, phylop_fit, phylop_lnl)
 
 
 def reset_launches() -> None:

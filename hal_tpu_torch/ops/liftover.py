@@ -448,8 +448,11 @@ class Liftover:
                         batch_size: int = 1 << 16) -> None:
         """Batched convert on the torch mapper: chunk k+1 is dispatched to
         the device before chunk k is decoded and formatted, so host
-        formatting overlaps device work.  Output bytes equal convert()'s."""
+        formatting overlaps device work.  batch_size 0 maps the whole
+        input in one chunk.  Output bytes equal convert()'s."""
         beds = list(read_bed(in_stream, bed_type))
+        if batch_size <= 0:
+            batch_size = max(len(beds), 1)
         mapper = BatchMapper(self.aln, self.src_name, self.tgt_name,
                              do_dupes=self.traverse_dupes,
                              coalescence_limit=self.coalescence_limit,

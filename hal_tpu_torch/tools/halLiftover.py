@@ -1,9 +1,17 @@
 """halLiftover on the torch port — the arguments of hal_tpu.tools.halLiftover
-plus --device.  With --batchSize N the BED lines are mapped N at a time by
-the torch segment mapper on --device; without it, per line on the host.
-Output bytes are the same either way.
+plus --device.  The BED lines are mapped --batchSize at a time (default
+16384; 0 = the whole input in one call) by the torch segment mapper on
+--device, so a default run maps on the card.  Output bytes equal the
+original's per-line host mapping.
 
-    python -m hal_tpu_torch.tools.halLiftover --device cuda --batchSize 16384 \\
+Every flag of the original is served by the batched mapper, with one
+exception: a --coalescenceLimit genome that is not an ancestor of the
+source and target's MRCA, which the batched path tables cannot express (the
+per-line mapper then maps without paralogies under --noDupes, and fails
+otherwise, as the original does).  That run prints one stderr line naming
+--coalescenceLimit and maps per line on the host.
+
+    python -m hal_tpu_torch.tools.halLiftover --device cuda \\
         aln.hal srcGenome in.bed tgtGenome out.bed
 """
 
@@ -17,6 +25,15 @@ from hal_tpu_torch.storage import open_alignment
 from hal_tpu_torch.tools import (HalError, add_storage_options, make_parser,
                                  tool_main)
 from hal_tpu_torch.ops.liftover import Liftover
+
+
+def _is_ancestor_of_mrca(tree, limit: str, src: str, tgt: str) -> bool:
+    """True where limit is the MRCA of src and tgt or above it: the
+    coalescence limits the batched path tables (PathData.build) take."""
+    node = tree.lca(src, tgt)
+    while node is not None and node != limit:
+        node = tree.parent(node)
+    return node is not None
 
 
 def run(argv=None):
@@ -34,10 +51,10 @@ def run(argv=None):
     p.add_argument("--outPSL", action="store_true")
     p.add_argument("--outPSLWithName", action="store_true")
     p.add_argument("--bedType", type=int, default=0)
-    p.add_argument("--batchSize", type=int, default=0,
-                   help="map this many BED lines per batch through the torch "
-                        "segment mapper on --device; 0 = per-line host "
-                        "mapping.  Output is identical either way")
+    p.add_argument("--batchSize", type=int, default=16384,
+                   help="map this many BED lines per call of the torch "
+                        "segment mapper on --device; 0 = the whole input in "
+                        "one call")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="torch device of the batched mapper (cpu runs the "
                         "kernels' plain versions)")
@@ -68,11 +85,15 @@ def run(argv=None):
         out_stream = sys.stdout
     else:
         out_stream = open(o.tgtBed, "a" if o.append else "w")
-    if o.batchSize > 0:
+    if coalescence and not _is_ancestor_of_mrca(aln.tree, coalescence,
+                                                o.srcGenome, o.tgtGenome):
+        sys.stderr.write("halLiftover: --coalescenceLimit %s is not an "
+                         "ancestor of the MRCA; mapping per line on the "
+                         "host\n" % coalescence)
+        lift.convert(in_stream, out_stream, o.bedType)
+    else:
         lift.convert_batched(in_stream, out_stream, o.bedType,
                              batch_size=o.batchSize)
-    else:
-        lift.convert(in_stream, out_stream, o.bedType)
     if out_stream is not sys.stdout:
         out_stream.close()
 

@@ -363,3 +363,121 @@ def test_native_column_exporter_equals_original(opts):
             jex.export_frags(0, ge, frags) + jex.finish()
     ex.close()
     jex.close()
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("tree", ["binary", "multifurcating"])
+def test_phylop_host_copy_equals_original(tmp_path, tree):
+    """hal_tpu_torch.phylop against hal_tpu.phylop on one seeded GTR .mod:
+    the parser, the eigenbasis (U, lam, Uinv), pmatrix,
+    column_log_likelihood (with and without a subtree scale),
+    score_patterns in every mode and scores_from_lrt, bit-equal."""
+    from hal_tpu import phylop as jax_phylop
+    from hal_tpu_torch import phylop as port_phylop
+    from test_torch_phylop import BINARY8, MULTI, gtr_mod_text
+
+    p = tmp_path / "m.mod"
+    p.write_text(gtr_mod_text(BINARY8 if tree == "binary" else MULTI, 51))
+    pm = port_phylop.NeutralModel.from_mod_file(str(p))
+    jm = jax_phylop.NeutralModel.from_mod_file(str(p))
+    assert pm.tree.to_newick() == jm.tree.to_newick()
+    assert pm.branch_length == jm.branch_length
+    for name in ("background", "rate_matrix", "_U", "_lam", "_Uinv"):
+        assert _same(getattr(pm, name), getattr(jm, name)), name
+    t = np.array([0.0, 1e-3, 0.1, 1.0, 7.5])
+    assert _same(pm.pmatrix(t), jm.pmatrix(t))
+    leaves = [n for n in pm.tree.names() if pm.tree.is_leaf(n)]
+    li = {n: i for i, n in enumerate(leaves)}
+    rng = np.random.default_rng(52)
+    pats = rng.integers(0, 5, (120, len(leaves))).astype(np.int64)
+    scale = rng.uniform(1e-3, 4.0, 120)
+    sub_nodes = frozenset(pm.tree.preorder(
+        [n for n in pm.tree.names() if not pm.tree.is_leaf(n)][1]))
+    assert _same(port_phylop.column_log_likelihood(pm, li, pats, scale),
+                 jax_phylop.column_log_likelihood(jm, li, pats, scale))
+    assert _same(
+        port_phylop.column_log_likelihood(pm, li, pats, scale, sub_nodes, 1.7),
+        jax_phylop.column_log_likelihood(jm, li, pats, scale, sub_nodes, 1.7))
+    for mode in ("CONACC", "CON", "ACC", "NNEUT"):
+        assert _same(port_phylop.score_patterns(pm, li, pats[:40], mode),
+                     jax_phylop.score_patterns(jm, li, pats[:40], mode)), mode
+        delta = rng.normal(0, 3, 200)
+        delta[:20] = 0.0
+        delta[20:30] = 1e-12
+        sign = rng.uniform(0.0, 3.0, 200)
+        inf = rng.random(200) < 0.8
+        assert _same(port_phylop.scores_from_lrt(delta, sign, inf, mode),
+                     jax_phylop.scores_from_lrt(delta, sign, inf, mode))
+    assert _same(port_phylop.score_patterns(pm, li, pats[:30], "CONACC",
+                                            sub_nodes=sub_nodes),
+                 jax_phylop.score_patterns(jm, li, pats[:30], "CONACC",
+                                           sub_nodes=sub_nodes))
+    bad = tmp_path / "bad.mod"
+    bad.write_text(p.read_text().replace("ORDER: 0", "ORDER: 2"))
+    for mod in (port_phylop, jax_phylop):
+        with pytest.raises(ValueError, match="ORDER 0"):
+            mod.NeutralModel.from_mod_file(str(bad))
+
+
+@pytest.fixture(scope="module")
+def stats_halz(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("stats") / "aln.halz")
+    jax_save(jax_random_alignment(**FIXTURE), path, fmt="halz")
+    return path
+
+
+def test_halStats_copy_equals_original(stats_halz, capsys):
+    """The port's halStats prints the original's bytes in every mode the
+    port has; the three modes whose modules are not in the port raise."""
+    from hal_tpu.tools import halStats as jax_stats
+    from hal_tpu_torch.tools import HalError
+    from hal_tpu_torch.tools import halStats as port_stats
+
+    aln = jax_open(stats_halz)
+    leaf = [n for n in aln.genome_names() if aln.tree.is_leaf(n)][0]
+    root = aln.root_name
+    for flags in ([], ["--genomes"], ["--sequences", leaf], ["--tree"],
+                  ["--sequenceStats", leaf], ["--bedSequences", leaf],
+                  ["--span", "%s,%s" % (leaf, root)],
+                  ["--spanRoot", "%s,%s" % (leaf, root)], ["--branches"],
+                  ["--children", root], ["--parent", leaf], ["--root"],
+                  ["--branchLength", leaf], ["--numSegments", leaf],
+                  ["--baseComp", "%s,3" % leaf], ["--metaData"],
+                  ["--chromSizes", leaf], ["--topSegments", leaf],
+                  ["--bottomSegments", root]):
+        capsys.readouterr()
+        jax_stats.run([stats_halz] + flags)
+        want = capsys.readouterr().out
+        port_stats.run([stats_halz] + flags)
+        assert capsys.readouterr().out == want, flags
+        assert want or flags == ["--metaData"], flags
+    for flags in (["--coverage", leaf], ["--percentID", leaf],
+                  ["--allCoverage"]):
+        with pytest.raises(HalError, match="not in the port"):
+            port_stats.run([stats_halz] + flags)
+
+
+def test_parallel_mp_copy_equals_original(stats_halz):
+    """parallel.mp's helpers (each a halStats subprocess of the port's
+    tool) return the original's values; the shell pool returns each
+    command's output in order."""
+    from hal_tpu.parallel import mp as jax_mp
+    from hal_tpu_torch.parallel import mp as port_mp
+
+    aln = jax_open(stats_halz)
+    leaf = [n for n in aln.genome_names() if aln.tree.is_leaf(n)][0]
+    for fn, args in (("get_hal_genomes", ()), ("get_hal_stats", ()),
+                     ("get_hal_child_names", (aln.root_name,)),
+                     ("get_hal_sequences", (leaf,))):
+        got = getattr(port_mp, fn)(stats_halz, *args)
+        assert got == getattr(jax_mp, fn)(stats_halz, *args) and got, fn
+    cmds = ["echo %d" % k for k in range(5)]
+    assert port_mp.run_parallel_shell_commands(cmds, 3) == \
+        jax_mp.run_parallel_shell_commands(cmds, 3) == \
+        ["%d\n" % k for k in range(5)]
+    with pytest.raises(RuntimeError, match="failed"):
+        port_mp.run_shell_command("exit 3")

@@ -262,6 +262,64 @@ def test_wrappers_check_inputs():
     assert K.launches() == before  # CPU tensors launch no kernel
 
 
+_FAKE_NVCC = r"""#!/bin/sh
+# stands in for nvcc: an object per source, each waiting until every
+# source's compile has started, then a link that concatenates them
+out=""; prev=""; compile=0
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  [ "$a" = "-c" ] && compile=1
+  prev="$a"
+done
+src="$a"
+if [ $compile = 1 ]; then
+  case "$src" in *bad.cu) echo "bad.cu(1): error: no" >&2; exit 2;; esac
+  touch "STARTED/$(basename "$out")"
+  n=0
+  while [ "$(ls STARTED | wc -l)" -lt NSRC ]; do
+    sleep 0.05; n=$((n + 1)); [ $n -gt 600 ] && exit 3
+  done
+  echo "ptxas info    : Used 7 registers, used 1 barriers" >&2
+  echo "$src" > "$out"
+else
+  shift 3; cat "$@" > "$out"
+fi
+"""
+
+
+def test_build_compiles_each_source_in_parallel(monkeypatch, tmp_path):
+    """_build.build starts one nvcc per source, all together (each fake
+    compile waits until all have started), links their objects into one
+    library, keeps ptxas's lines, and leaves no object behind; a failed
+    compile raises with its message."""
+    from hal_tpu_torch.ops import _build
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a", "b", "c"):
+        (csrc / ("%s.cu" % name)).write_text("// %s\n" % name)
+    nvcc = tmp_path / "nvcc"
+    (tmp_path / "started").mkdir()
+    nvcc.write_text(_FAKE_NVCC.replace("NSRC", "3").replace(
+        "STARTED", str(tmp_path / "started")))
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    so = _build.build()
+    assert so == _build.library_path() and so.parent == build
+    assert so.read_text().split() == [str(csrc / n) for n in
+                                      ("a.cu", "b.cu", "c.cu")]
+    assert _build.BUILD_LOG == ["ptxas info    : Used 7 registers, used 1 "
+                                "barriers"] * 3
+    assert not list(build.glob("*.o")) and not list(build.glob("*.tmp*"))
+    assert _build.build() == so  # found, not rebuilt
+    (csrc / "bad.cu").write_text("// bad\n")
+    with pytest.raises(RuntimeError, match="bad.cu.*error: no"):
+        _build.build()
+    assert not list(build.glob("*.o")) and not list(build.glob("*.so.tmp*"))
+
+
 def test_expand_owner_equals_jax():
     """_expand_owner (cumsum + scatter-max + cummax) equals segmap_jax's,
     including counts that overflow the capacity."""

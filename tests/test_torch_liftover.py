@@ -176,13 +176,96 @@ def test_cli_device_cpu_bytes_equal_host(halz_fixture, flags):
     assert want and open(port_out, "rb").read() == want
 
 
+def _bed12_lines(aln, src, n, seed):
+    """BED12 lines of 1-3 blocks over the source's sequences."""
+    g = aln.open_genome(src)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        k = int(rng.integers(0, g.num_sequences))
+        slen = g.seq_length(k)
+        nb = int(rng.integers(1, 4))
+        sizes = rng.integers(1, 8, nb)
+        gaps = rng.integers(0, 6, nb)
+        starts = np.concatenate([[0], np.cumsum(sizes + gaps)[:-1]])
+        span = int(starts[-1] + sizes[-1])
+        if slen <= span + 1:
+            continue
+        a = int(rng.integers(0, slen - span))
+        lines.append("%s\t%d\t%d\tb%d\t0\t%s\t%d\t%d\t0\t%d\t%s,\t%s,\n"
+                     % (g.seq_names[k], a, a + span, i, "+-"[i % 2], a,
+                        a + span, nb, ",".join(map(str, sizes)),
+                        ",".join(map(str, starts))))
+    return "".join(lines)
+
+
+@pytest.mark.parametrize("kind,flags", [("bed3", []), ("bed12", []),
+                                        ("bed3", ["--noDupes"]),
+                                        ("bed12", ["--outPSL"]),
+                                        ("bed3", ["--batchSize", "0"])],
+                         ids=["bed3", "bed12", "noDupes", "psl", "batch0"])
+def test_cli_default_maps_batched_bytes_equal_host(halz_fixture, monkeypatch,
+                                                   kind, flags):
+    """A default run of the port's CLI (no --batchSize) maps through the
+    batched torch mapper, never the per-line host mapper, and its bytes
+    equal hal_tpu's default (per-line) run."""
+    from hal_tpu.tools import halLiftover as host_cli
+    from hal_tpu_torch.ops import liftover as port_liftover
+    from hal_tpu_torch.tools import halLiftover as port_cli
+
+    hal, src, bed, tgt, d = halz_fixture
+    if kind == "bed12":
+        from hal_tpu_torch.storage import open_alignment
+
+        bed = str(d / "in12.bed")
+        with open(bed, "w") as f:
+            f.write(_bed12_lines(open_alignment(hal), src, 200, 6))
+    name = kind + "_".join(flags)
+    host_out = str(d / ("host_default_%s.out" % name))
+    port_out = str(d / ("port_default_%s.out" % name))
+    host_cli.run([f for f in flags if f not in ("--batchSize", "0")]
+                 + [hal, src, bed, tgt, host_out])
+
+    def per_line(*a, **k):
+        raise AssertionError("the default run mapped per line")
+
+    monkeypatch.setattr(port_liftover.Liftover, "convert", per_line)
+    port_cli.run(flags + ["--device", "cpu", hal, src, bed, tgt, port_out])
+    want = open(host_out, "rb").read()
+    assert want and open(port_out, "rb").read() == want
+
+
+def test_cli_coalescence_limit_below_mrca_maps_per_line(halz_fixture, capsys):
+    """--coalescenceLimit naming a genome that is not an ancestor of the
+    MRCA is the one flag the batched mapper cannot serve: one stderr line,
+    per-line mapping, the original's bytes (under --noDupes, where the
+    per-line mapper skips the paralogy climb that the limit would stop)."""
+    from hal_tpu.tools import halLiftover as host_cli
+    from hal_tpu_torch.storage import open_alignment
+    from hal_tpu_torch.tools import halLiftover as port_cli
+
+    hal, src, bed, tgt, d = halz_fixture
+    tree = open_alignment(hal).tree
+    limit = next(n for n in tree.names()
+                 if n not in tree.path_to_root(tree.lca(src, tgt)))
+    flags = ["--noDupes", "--coalescenceLimit", limit]
+    host_out, port_out = str(d / "host_coal.out"), str(d / "port_coal.out")
+    host_cli.run(flags + [hal, src, bed, tgt, host_out])
+    capsys.readouterr()
+    port_cli.run(flags + ["--device", "cpu", hal, src, bed, tgt, port_out])
+    err = capsys.readouterr().err
+    assert err.count("--coalescenceLimit") == 1 and "per line" in err
+    want = open(host_out, "rb").read()
+    assert want and open(port_out, "rb").read() == want
+
+
 def test_cli_device_cuda_without_card_raises(halz_fixture, monkeypatch,
                                              capsys):
     from hal_tpu_torch.tools import halLiftover as port_cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     hal, src, bed, tgt, d = halz_fixture
-    argv = ["--batchSize", "64", hal, src, bed, tgt, str(d / "never.out")]
+    argv = [hal, src, bed, tgt, str(d / "never.out")]
     with pytest.raises(HalError, match="no CUDA device"):
         port_cli.run(argv)
     assert port_cli.main(argv) == 1
@@ -214,8 +297,8 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 
 def test_port_imports_no_jax():
-    """Every hal_tpu_torch module — the depth and column engines, their
-    CLIs and host copies included — imports without jax or any module of
+    """Every hal_tpu_torch module — the depth and column engines, the
+    phyloP fit, their CLIs and host copies included — imports without jax or any module of
     the JAX package (hal_tpu, hal_tpu.*) entering the process: the port
     keeps its own copies of the host code it needs."""
     code = ("import sys, pkgutil, importlib, hal_tpu_torch\n"
@@ -227,7 +310,9 @@ def test_port_imports_no_jax():
             "'ops.depth ops.column_torch ops.column ops.column_native "
             "ops.poscache ops._native_build io.maf_io io.wiggle native "
             "tools.hal2maf tools.halAlignmentDepth "
-            "tools.halWiggleLiftover').split()}\n"
+            "tools.halWiggleLiftover phylop phylop_torch ops.phylop_fit "
+            "parallel.mp tools.halStats tools.halPhyloP tools.halPhyloPMP "
+            "tools.halTreePhyloP').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
@@ -248,7 +333,8 @@ def _names_hal_tpu(text: str) -> bool:
 def test_chip_smoke_imports_and_runs_no_hal_tpu():
     """chip_smoke.py neither imports hal_tpu nor jax, nor names hal_tpu in
     the arguments of any subprocess it starts (read with ast); it imports
-    the port's depth and column engines and their CLIs."""
+    the port's depth and column engines, the phyloP CLI and the other
+    CLIs."""
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = []
     for node in ast.walk(tree):
@@ -264,7 +350,7 @@ def test_chip_smoke_imports_and_runs_no_hal_tpu():
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
              for a in n.names}
     assert {"depth", "halAlignmentDepth", "halWiggleLiftover", "hal2maf",
-            "_native_build"} <= names, names
+            "_native_build", "halPhyloP"} <= names, names
     assert not [m for m in imported
                 if m.split(".")[0] in ("hal_tpu", "jax")], imported
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
