@@ -42,15 +42,19 @@ printing its seconds:
      native DFS engine, then six windows timed (device phase and end to
      end), and the hal2maf CLI on a smaller DNA alignment, --device cuda
      bytes equal to --device cpu.
-  7. the phyloP fit: phylop_lnl against lnl_plain (max relative error
-     1e-5) and the 241-leaf CONACC fit of 2^20 simulated patterns, kernel
-     (three calls) against the plain version (once), scored on a 2^14
-     subsample and against the float64 numpy fit on 1,024 (the float32
-     tolerance of tests/test_phylop_jax.py), the other modes and the
-     subtree fit on a 16-leaf tree; then PhyloPScorer(device="cuda") over
-     two 2^20-column windows of phase 6's MAF fixture, against
-     device="cpu" on [0, 2^16), and the halPhyloP CLI on 2^18 columns of
-     phase 6's CLI alignment, --device cuda against --device cpu.
+  7. the phyloP fit: phylop_lnl against lnl_plain in float64 (max
+     relative error 1e-5; the float32 plain version's own error printed
+     beside it), both launch shapes of phylop_fit bit-identical at 2^14
+     patterns, and the 241-leaf CONACC fit of 2^20 simulated patterns,
+     kernel (three calls, equal outputs) against the plain version (once),
+     scored on a 2^14 subsample and against the float64 numpy fit on 1,024
+     (the float32 tolerance of tests/test_phylop_jax.py), the other modes
+     and the subtree fit on a 16-leaf tree, each timed with its bound; then
+     PhyloPScorer(device="cuda") over two 2^20-column windows of phase 6's
+     MAF fixture, against device="cpu" on [0, 2^16), the fit timed at that
+     path's shape (its model, one window's new patterns), and the halPhyloP
+     CLI on 2^18 columns of phase 6's CLI alignment, --device cuda against
+     --device cpu.
 Phases 4-7 each drive a path with the launch counts set to 0 just before
 and read just after; the three Pallas kernels' ports must launch on every
 path, and phylop_fit on the phyloP path.
@@ -112,8 +116,9 @@ HBM_BYTES_PER_S = 3.35e12
 ALU32_OPS_PER_S = 67e12
 # special-function results (exp, log): 16 a clock per SM (NVIDIA's
 # arithmetic throughput table for compute capability 9.0) x 132 SMs x
-# 1.98 GHz
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# 1.98 GHz, the SM clock nvidia-smi reports as its maximum
+SM_CLOCK_HZ = 1.98e9
+SFU_OPS_PER_S = 16 * 132 * SM_CLOCK_HZ
 
 # the three Pallas kernels' ports, required on every path
 PALLAS_PORTS = ("searchsorted_right", "cumsum_i32", "cummax_i32")
@@ -1318,15 +1323,41 @@ def simulate_codes(dev_fit, npat: int, seed: int, device):
 
 
 def phylop_work(prog, subtree: bool) -> tuple:
-    """(FP32 operations, special-function operations) of one fit per
-    pattern, counted from the program: per edge the branch time (1, or 2
-    on a subtree branch), lam * t (4), the exps (4 SFU), their product
-    (4), Uinv @ L for an internal child (16 FMA = 32), U @ w (32), the
-    clip (4) and the product into the parent (4, not for its first
-    child); per node its max (3), guard (1), the four divisions (4) and the
-    log-scale sum (1), its log on the SFU; the root's dot (7), clamp (1)
-    and sum (1) and log; 8 per golden iteration.  A fit is 100
-    evaluations, 900 with a subtree."""
+    """(FP32 operations, special-function results) that one fit needs per
+    pattern, an FMA counted as 2, from the program.  Per edge: the
+    exponents of the three states that are not the unit state (3: lam * bl
+    folded on the host, times the scale; the scale times the subtree scale
+    once an evaluation) and their exps (3 SFU; the unit state's exp is
+    exactly 1), Uinv @ L of an internal child over those states (12 FMA =
+    24; a leaf's is a table entry), their product with the exps (3), L + U
+    @ that (12 FMA = 24), the clip (4) and the product into the parent (4,
+    not for its first child).  Per node: its max (3) and the four exact
+    power-of-two scalings (4; the scale's exponent sum is integer work).
+    At the root: the dot with bg (7), the clamp (1), k ln 2 (4) and one log.
+    8 per golden iteration.  A fit is 100 evaluations, 900 with a
+    subtree."""
+    flops = sfu = 0
+    for _slot, kids in prog.nodes:
+        for k, (leaf, _i, _bl, _in_sub) in enumerate(kids):
+            flops += 3 + (0 if leaf else 24) + 3 + 24 + 4 + (4 if k else 0)
+            sfu += 3
+        flops += 7
+    flops += 12 + (1 if subtree else 0)
+    sfu += 1
+    evals, iters = (900, 450) if subtree else (100, 50)
+    return evals * flops + 8 * iters, evals * sfu
+
+
+def jax_work(prog, subtree: bool) -> tuple:
+    """(FP32 operations, special-function results) of one fit per pattern
+    as the JAX program does it (phylop_jax._lnl), the count of PR 5's bound,
+    kept so that shares compare with it: per edge the branch time (1, or 2
+    on a subtree branch), lam * t (4), the exps (4 SFU), their product (4),
+    Uinv @ L for an internal child (16 FMA = 32), U @ w (32), the clip (4)
+    and the product into the parent (4, not for its first child); per node
+    its max (3), guard (1), the four divisions (4) and the log-scale sum
+    (1), its log on the SFU; the root's dot (7), clamp (1) and sum (1) and
+    log; 8 per golden iteration."""
     flops = sfu = 0
     for _slot, kids in prog.nodes:
         for k, (leaf, _i, _bl, in_sub) in enumerate(kids):
@@ -1385,11 +1416,91 @@ def event_s(fn) -> tuple:
     return a.elapsed_time(b) / 1e3, out
 
 
+def fit_bound(codes, prog, subtree: bool) -> tuple:
+    """(bound s, how it is set, the same bound of JAX's count) of one
+    phylop_fit call on codes: the larger of the FP32 operations the fit
+    needs over 67 T/s, its special-function results over the SFU rate
+    (phylop_work) and the call's bytes over the HBM rate.  The third is
+    that bound with the JAX program's work (jax_work), PR 5's bound."""
+    npat = codes.shape[1]
+    nbytes = codes.numel() + 12 * npat + prog.edges.numel() * 4
+
+    def parts(work):
+        flops, sfu = work(prog, subtree)
+        return {"bytes": nbytes / HBM_BYTES_PER_S,
+                "FP32 operations": npat * flops / ALU32_OPS_PER_S,
+                "SFU operations": npat * sfu / SFU_OPS_PER_S}
+
+    need, jax = parts(phylop_work), parts(jax_work)
+    by = max(need, key=need.get)
+    return need[by], ("%s (FP32 %.4f ms, SFU %.4f ms, bytes %.4f ms; JAX's "
+                      "count: FP32 %.4f ms, SFU %.4f ms)"
+                      % (by, 1e3 * need["FP32 operations"],
+                         1e3 * need["SFU operations"], 1e3 * need["bytes"],
+                         1e3 * jax["FP32 operations"],
+                         1e3 * jax["SFU operations"])), max(jax.values())
+
+
+def lnl_checks(pf, codes, s, ss, prog, prog64, what: str,
+               baseline=None) -> tuple:
+    """phylop_lnl on the card against lnl_plain in float64 (relative 1e-5,
+    the float32 plain version's own error printed beside it: it rounds
+    JAX's U (e * Uinv @ L) form, which loses ~1e-7 / t of a short branch's
+    small entries).  baseline: a function giving an earlier kernel's lnl at
+    the same inputs, whose float64 error the kernel's must not exceed.
+    Returns (max abs err, max rel err) of the kernel against float64 and
+    the baseline's max abs err (None without one)."""
+    import torch
+
+    got = pf.phylop_lnl(codes, s, ss, prog)
+    want = pf.lnl_plain(codes, s.double(), ss.double(), prog64)
+    b_abs = None
+    if baseline is not None:
+        b_abs = float((baseline().double() - want).abs().max())
+    plain = pf.lnl_plain(codes, s, ss, prog).double()
+    scale = want.abs().clamp(min=1)
+    k_abs = float((got.double() - want).abs().max())
+    k_rel = float(((got.double() - want).abs() / scale).max())
+    if not (bool(torch.isfinite(got).all()) and k_rel <= 1e-5):
+        raise AssertionError("%s: phylop_lnl vs float64 lnl_plain: max rel "
+                             "err %.3g" % (what, k_rel))
+    if b_abs is not None and not k_abs <= b_abs:
+        raise AssertionError("%s: phylop_lnl's float64 error %.3g exceeds "
+                             "the baseline's %.3g" % (what, k_abs, b_abs))
+    log("  %s: phylop_lnl vs float64 lnl_plain (%d patterns): max abs err "
+        "%.3g, max rel err %.3g; float32 lnl_plain vs float64: %.3g, %.3g; "
+        "kernel vs float32 lnl_plain: max rel %.3g (lnl %.1f .. %.1f)%s"
+        % (what, codes.shape[1], k_abs, k_rel,
+           float((plain - want).abs().max()),
+           float(((plain - want).abs() / scale).max()),
+           float(((got.double() - plain).abs() / plain.abs().clamp(min=1)).max()),
+           float(want.min()), float(want.max()),
+           "; baseline max abs err %.3g" % b_abs if b_abs is not None else ""))
+    return k_abs, k_rel, b_abs
+
+
+def shapes_identical(pf, codes, prog, mode, subtree, what: str) -> None:
+    """phylop_fit's two launch shapes (one thread a pattern, two lanes a
+    pattern) give the same bits, and a repeated call too."""
+    import torch
+
+    one = pf._fit_kernel(codes, prog, mode, subtree, False)
+    two = pf._fit_kernel(codes, prog, mode, subtree, True)
+    again = pf._fit_kernel(codes, prog, mode, subtree, False)
+    if not all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(one, two, again)):
+        raise AssertionError("%s: phylop_fit's launch shapes or repeated "
+                             "calls differ" % what)
+    log("  %s: both launch shapes and a repeated call bit-identical (%d "
+        "patterns)" % (what, codes.shape[1]))
+
+
 def phylop_kernel_checks(dev) -> dict:
     """phylop_fit and phylop_lnl against the plain version on the card: the
     241-leaf CONACC fit at 2^20 patterns timed, its scores on a 2^14
     subsample and the float64 numpy fit on 1,024; the other modes and the
-    subtree fit on a 16-leaf tree.  Returns phylop_fit's record."""
+    subtree fit on a 16-leaf tree, each timed with its bound.  Returns
+    phylop_fit's record."""
     import torch
 
     from hal_tpu_torch.ops import phylop_fit as pf
@@ -1403,6 +1514,8 @@ def phylop_kernel_checks(dev) -> dict:
     li = {n: i for i, n in enumerate(leaves)}
     fit = DevicePhyloP(mod, li, "CONACC", device=dev)
     prog = fit.program()
+    prog64 = DevicePhyloP(mod, li, "CONACC", dtype=torch.float64,
+                          device=dev).program()
     n = PHYLOP_PATTERNS
     codes = simulate_codes(fit, n, 72, dev)
     log("phase 7 phyloP kernel: %d-leaf seeded tree (%d edges, %d slots), "
@@ -1414,16 +1527,11 @@ def phylop_kernel_checks(dev) -> dict:
     rng = np.random.default_rng(73)
     s = torch.from_numpy(rng.uniform(0.1, 3.0, n)).float().to(dev)
     ss = torch.from_numpy(rng.uniform(0.5, 2.0, n)).float().to(dev)
-    got = pf.phylop_lnl(codes, s, ss, prog)
-    want = pf.lnl_plain(codes, s, ss, prog)
-    lnl_abs = float((got - want).abs().max().item())
-    lnl_rel = float(((got - want).abs() / want.abs().clamp(min=1)).max().item())
-    if not (bool(torch.isfinite(got).all()) and lnl_rel <= 1e-5):
-        raise AssertionError("phylop_lnl != lnl_plain: max rel err %.3g"
-                             % lnl_rel)
-    log("  phylop_lnl vs lnl_plain (%d patterns): max rel err %.2e, max abs "
-        "err %.2e (lnl %.1f .. %.1f)" % (n, lnl_rel, lnl_abs,
-                                        float(want.min()), float(want.max())))
+    lnl_abs, lnl_rel, _ = lnl_checks(pf, codes, s, ss, prog, prog64,
+                                     "%d leaves" % len(leaves))
+    del prog64
+    shapes_identical(pf, codes[:, :PHYLOP_SMALL_PATTERNS].contiguous(), prog,
+                     "CONACC", False, "%d leaves" % len(leaves))
 
     # the fit: kernel, plain (once), kernel, kernel
     k_s = []
@@ -1433,24 +1541,16 @@ def phylop_kernel_checks(dev) -> dict:
     for _ in range(2):
         t, out = event_s(lambda: pf.phylop_fit(codes, prog, "CONACC"))
         k_s.append(t)
-        if not torch.equal(out[1], fk[1]):
+        if not all(torch.equal(a, b) for a, b in zip(out, fk)):
             raise AssertionError("phylop_fit is not deterministic")
-    flops, sfu = phylop_work(prog, False)
-    nbytes = codes.numel() + 12 * n + prog.edges.numel() * 4
-    b_bytes = nbytes / HBM_BYTES_PER_S
-    b_ops = n * flops / ALU32_OPS_PER_S
-    b_sfu = n * sfu / SFU_OPS_PER_S
-    bound = max(b_bytes, b_ops, b_sfu)
+    bound, how, jax_bound = fit_bound(codes, prog, False)
     ms = 1e3 * float(np.median(k_s))
     log("  time phylop_fit (%d leaves x %d patterns, CONACC): kernel %s ms "
-        "(median %.1f), plain %.1f ms once; bound %.1f ms by %s (FP32 %.3g "
-        "ops -> %.1f ms, SFU %.3g ops -> %.1f ms, bytes %.3g -> %.3f ms), "
-        "kernel at %.0f%% of it"
+        "(median %.1f), plain %.1f ms once; bound %.1f ms by %s, kernel at "
+        "%.1f%% of it; at %.1f%% of JAX's count's %.1f ms (PR 5's bound)"
         % (len(leaves), n, [round(1e3 * x, 1) for x in k_s], ms,
-           1e3 * t_plain, 1e3 * bound,
-           "SFU operations" if b_sfu >= b_ops else "FP32 operations",
-           n * flops, 1e3 * b_ops, n * sfu, 1e3 * b_sfu, nbytes, 1e3 * b_bytes,
-           100 * 1e3 * bound / ms))
+           1e3 * t_plain, 1e3 * bound, how, 100 * 1e3 * bound / ms,
+           100 * 1e3 * jax_bound / ms, 1e3 * jax_bound))
 
     # scores of a subsample of both fits, and of the float64 numpy fit
     sub = np.sort(np.random.default_rng(74).choice(n, PHYLOP_SCORED,
@@ -1483,32 +1583,57 @@ def phylop_kernel_checks(dev) -> dict:
         f16 = DevicePhyloP(small, sli, mode, subn, device=dev)
         p16 = f16.program()
         c16 = simulate_codes(f16, PHYLOP_SMALL_PATTERNS, 76, dev)
+        what = "16 leaves, %s%s" % (mode, " subtree" if subn else "")
         if subn:
-            got = pf.phylop_lnl(c16, s[:c16.shape[1]].contiguous(),
-                                ss[:c16.shape[1]].contiguous(), p16)
-            want = pf.lnl_plain(c16, s[:c16.shape[1]], ss[:c16.shape[1]], p16)
-            rel = float(((got - want).abs()
-                         / want.abs().clamp(min=1)).max().item())
-            if rel > 1e-5:
-                raise AssertionError("phylop_lnl (subtree) max rel err %.3g"
-                                     % rel)
+            n16 = c16.shape[1]
+            lnl_checks(pf, c16, s[:n16].contiguous(), ss[:n16].contiguous(),
+                       p16, DevicePhyloP(small, sli, mode, subn,
+                                         dtype=torch.float64,
+                                         device=dev).program(), what)
+        shapes_identical(pf, c16, p16, mode, bool(subn), what)
         tk, k16 = event_s(lambda: pf.phylop_fit(c16, p16, mode, bool(subn)))
+        tk2, _ = event_s(lambda: pf.phylop_fit(c16, p16, mode, bool(subn)))
         tp, q16 = event_s(lambda: pf.fit_plain(c16, p16, mode, bool(subn)))
+        b16, how16, _ = fit_bound(c16, p16, bool(subn))
         p16n = c16.t().cpu().numpy().astype(np.int64)
         a = f16.scores_at(p16n, *(x.cpu().double().numpy() for x in k16))
         b = f16.scores_at(p16n, *(x.cpu().double().numpy() for x in q16))
-        scores_agree(a, b, mode, "16 leaves, %s%s, kernel %.1f ms vs plain "
-                     "%.1f ms" % (mode, " subtree" if subn else "", 1e3 * tk,
-                                  1e3 * tp),
+        scores_agree(a, b, mode, "%s, kernel %.3f / %.3f ms vs plain %.1f ms; "
+                     "bound %.4f ms by %s, kernel at %.1f%% of it"
+                     % (what, 1e3 * tk, 1e3 * tk2, 1e3 * tp, 1e3 * b16, how16,
+                        100 * b16 / min(tk, tk2)),
                      SUBTREE_F32_SHARE if subn else 0.0)
     return {"name": "phylop_fit", "route": "cuda",
             "source": SOURCES["phylop_fit"], "replaces": REPLACES["phylop_fit"],
             "max_abs_err": lnl_abs, "max_abs_err_of": "phylop_lnl vs "
-            "lnl_plain, the fit's likelihood function, %d patterns" % n,
-            "lnl_max_rel_err": lnl_rel, "score_max_abs_diff": worst,
+            "lnl_plain in float64, the fit's likelihood function, %d patterns"
+            % n, "lnl_max_rel_err": lnl_rel, "score_max_abs_diff": worst,
             "ms": ms, "plain_ms": 1e3 * t_plain, "bound_ms": 1e3 * bound,
             "bound_by": "operations", "library_ms": None,
+            "jax_count_bound_ms": 1e3 * jax_bound,
             "shape": "%d leaves x %d patterns, CONACC" % (len(leaves), n)}
+
+
+def time_path_fit(dev, scorer, npat: int) -> None:
+    """phylop_fit at the phyloP path's shape: the scorer's own model (its
+    species' tree) and one window's count of new patterns, simulated."""
+    from hal_tpu_torch.ops import phylop_fit as pf
+
+    prog = scorer._dev.program()
+    codes = simulate_codes(scorer._dev, npat, 84, dev)
+    shapes_identical(pf, codes, prog, scorer._dev.mode, False,
+                     "phyloP path's fit")
+    ts = [event_s(lambda: pf.phylop_fit(codes, prog, scorer._dev.mode))[0]
+          for _ in range(3)]
+    tp, _ = event_s(lambda: pf.fit_plain(codes, prog, scorer._dev.mode,
+                                         False))
+    bound, how, _ = fit_bound(codes, prog, False)
+    log("  time phylop_fit at the phyloP path's shape (%d leaves x %d "
+        "patterns, %s): kernel %s ms, plain %.1f ms; bound %.4f ms by %s, "
+        "kernel at %.1f%% of it"
+        % (prog.n_leaves, npat, scorer._dev.mode,
+           [round(1e3 * t, 3) for t in ts], 1e3 * tp, 1e3 * bound, how,
+           100 * bound / min(ts)))
 
 
 def phase_phylop(dev, maf, tmp) -> tuple:
@@ -1569,6 +1694,7 @@ def phase_phylop(dev, maf, tmp) -> tuple:
         windows.append((out, time.perf_counter() - t1, dict(spent)))
     launches = K.launches()
     check_launched(launches, "phyloP", PALLAS_PORTS + ("phylop_fit",))
+    time_path_fit(dev, scorer, patterns[0])
     scores = np.concatenate([w for w, _, _ in windows])
     if scores.shape != (2 * W,) or not np.isfinite(scores).all() or \
             np.abs(scores).max() > 20.0 + 1e-9:

@@ -122,11 +122,15 @@ def library() -> ctypes.CDLL:
         lib.hal_scan_tile.restype = ll
         f32 = ctypes.c_float
         lib.hal_phylop_fit.argtypes = [vp, vp, i32, i32, vp, ll, f32, f32, f32,
-                                       i32, vp, vp, vp, vp]
+                                       i32, i32, vp, vp, vp, vp]
         lib.hal_phylop_fit.restype = i32
         lib.hal_phylop_lnl.argtypes = [vp, vp, i32, i32, vp, ll, vp, vp, vp,
                                        vp]
         lib.hal_phylop_lnl.restype = i32
+        lib.hal_phylop_fit_wave.argtypes = [i32, i32]
+        lib.hal_phylop_fit_wave.restype = ll
+        lib.hal_phylop_max_patterns.argtypes = []
+        lib.hal_phylop_max_patterns.restype = ll
         for name in ("hal_phylop_max_slots", "hal_phylop_model_words"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32

@@ -4,9 +4,10 @@ hal_tpu/phylop_jax.py:106-203 (DevicePhyloP._lnl, _golden, _alt_bounds and
 the jitted program of _build_jit).
 
 A FitProgram is the model tree as the fit walks it: the internal nodes in
-postorder, each with its children (a leaf's code row or an internal node's
-slot, the branch length, whether the branch carries the subtree scale),
-and the same as an int4 edge program for the kernel.  Codes are (nleaf,
+JAX's postorder, each with its children (a leaf's code row or an internal
+node's index, the branch length, whether the branch carries the subtree
+scale), which the plain version walks, and the kernel's walk of the same
+tree as an int4 edge program over shared-memory slots.  Codes are (nleaf,
 npat) uint8 base codes (0-3 ACGT, 4 and above missing), pattern-contiguous.
 
 phylop_fit and phylop_lnl take the plain version for tensors on the CPU;
@@ -27,10 +28,11 @@ SUBTREE_ITERS = 4      # phylop_jax.SUBTREE_ITERS
 SCALE_LO, SCALE_HI = 1e-6, 20.0  # phylop.SCALE_LO / SCALE_HI
 INVPHI = (math.sqrt(5.0) - 1.0) / 2.0
 MODES = ("CONACC", "CON", "ACC", "NNEUT")
-MAX_SLOTS = 64  # kMaxSlots of csrc/phylop_fit.cu
+MAX_SLOTS = 32  # kMaxSlots of csrc/phylop_fit.cu
+MAX_PATTERNS = 1 << 30  # kMaxPatterns: a call's patterns on the card
 
 # edge flags of the kernel's program (csrc/phylop_fit.cu)
-FLAG_IN_SUB, FLAG_LEAF, FLAG_FIRST, FLAG_LAST = 1, 2, 4, 8
+FLAG_IN_SUB, FLAG_LEAF, FLAG_LAST = 1, 2, 8
 
 
 def alt_bounds(mode: str) -> tuple[float, float]:
@@ -49,11 +51,14 @@ def alt_bounds(mode: str) -> tuple[float, float]:
 @dataclass(frozen=True)
 class FitProgram:
     """The tree and the model in one dtype on one device.  nodes: per
-    internal node in postorder, (slot, children), each child (is_leaf,
-    code row or slot, branch length, in_sub); leaf_cols: (4, 5), column c
-    = Uinv @ L_c for the one-hot L_c (c < 4) and L_4 = 1; edges: (n_edges,
-    4) int32, one row per child in the same order: (code row or slot,
-    parent slot, flags, branch length as float32 bits)."""
+    internal node in JAX's postorder, (index, children), each child
+    (is_leaf, code row or the index of an internal node, branch length,
+    in_sub), in JAX's child order; leaf_cols: (4, 5), column c = Uinv @ L_c
+    for the one-hot L_c (c < 4) and L_4 = 1; edges: the kernel's walk
+    (program_layout), (n_edges, 4) int32, one row per child: (code row or
+    slot, parent slot, flags, branch length as float32 bits); n_slots: the
+    slots it keeps alive at once; exp2_rates: lam * log2(e) in float64,
+    the last 0 (the function exp2_rates)."""
 
     nodes: tuple
     n_slots: int
@@ -63,6 +68,7 @@ class FitProgram:
     bg: torch.Tensor
     leaf_cols: torch.Tensor
     edges: torch.Tensor
+    exp2_rates: tuple
 
     @property
     def dtype(self) -> torch.dtype:
@@ -74,7 +80,7 @@ class FitProgram:
 
     @property
     def n_leaves(self) -> int:
-        return sum(leaf for _slot, kids in self.nodes for leaf, *_ in kids)
+        return sum(leaf for _index, kids in self.nodes for leaf, *_ in kids)
 
     @property
     def tiny(self) -> float:
@@ -85,25 +91,56 @@ class FitProgram:
 def program_layout(prog: list, leaves: list) -> tuple[tuple, int, np.ndarray]:
     """(nodes, n_slots, edges) of a postorder edge program prog = [(node,
     [(child, branch length, in_sub), ...]), ...] over the leaf order
-    `leaves` (phylop_jax.DevicePhyloP._prog).  Slots go to internal nodes
-    as they complete; a child's slot is freed when its parent consumes it,
-    and the smallest free slot is taken first."""
+    `leaves` (phylop_jax.DevicePhyloP._prog).  nodes keep prog's order;
+    edges are the kernel's walk: from the root down, each node's child
+    subtrees are visited in order of the slots they need, largest first
+    (Sethi-Ullman; ties in prog's order), and each node's own edges follow
+    in prog's child order.  Slots go to internal nodes as they complete; a
+    child's slot is freed when its parent consumes it, and the smallest
+    free slot is taken first."""
     leaf_row = {n: i for i, n in enumerate(leaves)}
     if not prog:
         raise ValueError("the model tree has no internal node")
+    index = {name: k for k, (name, _kids) in enumerate(prog)}
+    nodes = tuple(
+        (k, tuple((True, leaf_row[c], float(bl), bool(s)) if c in leaf_row
+                  else (False, index[c], float(bl), bool(s))
+                  for c, bl, s in kids))
+        for k, (_name, kids) in enumerate(prog))
+    # the slots each subtree keeps alive at its peak: its i-th internal
+    # child in visit order needs its own need plus the i results before it
+    need = []
+    for k, kids in nodes:
+        inner = sorted((need[i] for leaf, i, *_ in kids if not leaf),
+                       reverse=True)
+        need.append(max([1] + [n + i for i, n in enumerate(inner)]))
+    visit = []
+    stack = [(len(nodes) - 1, False)]
+    while stack:
+        k, done = stack.pop()
+        if done:
+            visit.append(k)
+            continue
+        stack.append((k, True))
+        inner = sorted((i for leaf, i, *_ in nodes[k][1] if not leaf),
+                       key=lambda i: -need[i])
+        stack.extend((i, False) for i in reversed(inner))
+    if len(visit) != len(nodes):
+        raise ValueError("the edge program is not one tree rooted at its "
+                         "last node")
     slot_of: dict = {}
     free: list[int] = []
     n_slots = 0
-    nodes = []
     edges = []
-    for name, kids in prog:
-        children = []
-        for child, bl, in_sub in kids:
-            if child in leaf_row:
-                children.append((True, leaf_row[child], float(bl), bool(in_sub)))
+    for k in visit:
+        kids = nodes[k][1]
+        rows = []
+        for leaf, i, bl, in_sub in kids:
+            if leaf:
+                rows.append(i)
             else:
-                s = slot_of.pop(child)
-                children.append((False, s, float(bl), bool(in_sub)))
+                s = slot_of.pop(i)
+                rows.append(s)
                 free.append(s)
         if free:
             free.sort()
@@ -111,15 +148,26 @@ def program_layout(prog: list, leaves: list) -> tuple[tuple, int, np.ndarray]:
         else:
             slot = n_slots
             n_slots += 1
-        slot_of[name] = slot
-        nodes.append((slot, tuple(children)))
-        for k, (leaf, index, bl, in_sub) in enumerate(children):
+        slot_of[k] = slot
+        for j, ((leaf, _i, bl, in_sub), row) in enumerate(zip(kids, rows)):
             flags = ((FLAG_IN_SUB if in_sub else 0) | (FLAG_LEAF if leaf else 0)
-                     | (FLAG_FIRST if k == 0 else 0)
-                     | (FLAG_LAST if k == len(children) - 1 else 0))
+                     | (FLAG_LAST if j == len(kids) - 1 else 0))
             bits = int(np.array(bl, np.float32).view(np.int32))
-            edges.append((index, slot, flags, bits))
-    return tuple(nodes), n_slots, np.array(edges, np.int32).reshape(-1, 4)
+            edges.append((row, slot, flags, bits))
+    return nodes, n_slots, np.array(edges, np.int32).reshape(-1, 4)
+
+
+def exp2_rates(lam) -> tuple:
+    """lam * log2(e) per state in float64, the last set to 0: a rate
+    matrix's rows sum to 0, so it has the eigenvalue 0, which eigh puts last
+    (the others are negative) and leaves at the residue of the .mod file's
+    rounded rows (~1e-11 at ten decimals).  The kernel skips that state's
+    exps, each exactly 1.  A last eigenvalue far from 0 is refused."""
+    lam = np.asarray(lam, np.float64)
+    if abs(lam[3]) > 1e-3 * max(1.0, float(np.abs(lam).max())):
+        raise ValueError("the rate matrix's last eigenvalue is %.3g, not its "
+                         "eigenvalue 0" % lam[3])
+    return tuple(x / math.log(2.0) for x in lam[:3].tolist()) + (0.0,)
 
 
 def build_program(prog: list, leaves: list, U, Uinv, lam, bg, *,
@@ -128,9 +176,9 @@ def build_program(prog: list, leaves: list, U, Uinv, lam, bg, *,
     (numpy U, Uinv, lam, bg) in dtype on device."""
     nodes, n_slots, edges = program_layout(prog, leaves)
     if dtype == torch.float32:  # branch lengths as the float32 program sees them
-        nodes = tuple((slot, tuple((leaf, i, float(np.float32(bl)), s)
-                                   for leaf, i, bl, s in kids))
-                      for slot, kids in nodes)
+        nodes = tuple((k, tuple((leaf, i, float(np.float32(bl)), s)
+                                for leaf, i, bl, s in kids))
+                      for k, kids in nodes)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -140,7 +188,8 @@ def build_program(prog: list, leaves: list, U, Uinv, lam, bg, *,
     leaf_cols = torch.cat([Uinv_t, Uinv_t.sum(dim=1, keepdim=True)], dim=1)
     return FitProgram(nodes=nodes, n_slots=n_slots, U=t(U), Uinv=Uinv_t,
                       lam=t(lam), bg=t(bg), leaf_cols=leaf_cols,
-                      edges=torch.as_tensor(edges, device=device))
+                      edges=torch.as_tensor(edges, device=device),
+                      exp2_rates=exp2_rates(lam))
 
 
 # ------------------------------------------------------------ plain version
@@ -151,10 +200,10 @@ def lnl_plain(codes: torch.Tensor, scale: torch.Tensor,
     and sub_scale (npat,) — phylop_jax.DevicePhyloP._lnl."""
     U, Uinv, lam, bg = prog.U, prog.Uinv, prog.lam, prog.bg
     rows = codes.long().clamp(max=4)
-    slots: list = [None] * prog.n_slots
+    partial: dict = {}
     logscale = torch.zeros(scale.shape, dtype=prog.dtype, device=prog.device)
     L = None
-    for slot, kids in prog.nodes:
+    for node, kids in prog.nodes:
         L = None
         for leaf, index, bl, in_sub in kids:
             t = bl * scale
@@ -163,8 +212,7 @@ def lnl_plain(codes: torch.Tensor, scale: torch.Tensor,
             if leaf:
                 w = prog.leaf_cols[:, rows[index]]        # Uinv @ L_leaf
             else:
-                w = Uinv @ slots[index]
-                slots[index] = None
+                w = Uinv @ partial.pop(index)
             w = w * torch.exp(lam[:, None] * t[None, :])
             w = torch.clamp_min(U @ w, 0.0)   # P >= 0 (phylop.py pmatrix clip)
             L = w if L is None else L * w
@@ -172,7 +220,7 @@ def lnl_plain(codes: torch.Tensor, scale: torch.Tensor,
         mx = torch.where(mx > 0, mx, torch.ones_like(mx))
         L = L / mx[None, :]
         logscale = logscale + torch.log(mx)
-        slots[slot] = L
+        partial[node] = L
     return torch.log(torch.clamp_min(bg @ L, prog.tiny)) + logscale
 
 
@@ -244,16 +292,20 @@ def _check(name: str, codes: torch.Tensor, prog: FitProgram) -> None:
 
 def model_words(prog: FitProgram) -> torch.Tensor:
     """The kernel's Model (csrc/phylop_fit.cu) as float32 host memory: U,
-    Uinv (row-major), leaf columns (column c as 4 consecutive words), lam,
-    bg, tiny."""
+    Uinv (row-major), leaf columns (column c as 4 consecutive words),
+    exp2_rates, bg, tiny."""
     parts = [prog.U.reshape(-1), prog.Uinv.reshape(-1),
-             prog.leaf_cols.t().reshape(-1), prog.lam, prog.bg]
+             prog.leaf_cols.t().reshape(-1),
+             torch.tensor(prog.exp2_rates, dtype=torch.float64), prog.bg]
     words = torch.cat([p.detach().to("cpu", torch.float32) for p in parts]
                       + [torch.tensor([prog.tiny], dtype=torch.float32)])
     return words.contiguous()
 
 
 def _launch_args(name: str, codes: torch.Tensor, prog: FitProgram):
+    if codes.shape[1] > MAX_PATTERNS:
+        raise ValueError("%s: %d patterns in one call, the kernel at most %d"
+                         % (name, codes.shape[1], MAX_PATTERNS))
     if prog.n_slots > MAX_SLOTS:
         raise ValueError("%s: the tree keeps %d partials alive at once, the "
                          "kernel at most %d" % (name, prog.n_slots, MAX_SLOTS))
@@ -264,6 +316,9 @@ def _launch_args(name: str, codes: torch.Tensor, prog: FitProgram):
     if words.numel() != lib.hal_phylop_model_words():
         raise RuntimeError("csrc/phylop_fit.cu's Model differs from "
                            "phylop_fit.model_words")
+    if lib.hal_phylop_max_patterns() != MAX_PATTERNS:
+        raise RuntimeError("csrc/phylop_fit.cu's kMaxPatterns differs from "
+                           "phylop_fit.MAX_PATTERNS")
     edges = prog.edges
     if edges.dtype != torch.int32 or not edges.is_contiguous():
         raise ValueError("%s: the edge program must be contiguous int32"
@@ -280,6 +335,15 @@ def phylop_fit(codes: torch.Tensor, prog: FitProgram, mode: str,
     _check("phylop_fit", codes, prog)
     if codes.device.type == "cpu":
         return fit_plain(codes, prog, mode, sub)
+    return _fit_kernel(codes, prog, mode, sub, None)
+
+
+def _fit_kernel(codes: torch.Tensor, prog: FitProgram, mode: str, sub: bool,
+                pair_lanes: bool | None) -> tuple:
+    """phylop_fit's launch in either shape: one thread a pattern
+    (pair_lanes False) or two lanes a pattern (True), which give the same
+    bits; None takes two lanes when the patterns do not fill one wave of
+    the card in the first shape."""
     lo, hi = alt_bounds(mode)
     npat = codes.shape[1]
     outs = [torch.empty(npat, dtype=torch.float32, device=codes.device)
@@ -288,12 +352,19 @@ def phylop_fit(codes: torch.Tensor, prog: FitProgram, mode: str,
         return tuple(outs)
     if codes.device.index != torch.cuda.current_device():
         with torch.cuda.device(codes.device):
-            return phylop_fit(codes, prog, mode, sub)
+            return _fit_kernel(codes, prog, mode, sub, pair_lanes)
     lib, words, edges, stream = _launch_args("phylop_fit", codes, prog)
+    if pair_lanes is None:
+        wave = lib.hal_phylop_fit_wave(edges.shape[0], prog.n_slots)
+        if wave < 0:
+            raise RuntimeError("phylop_fit: occupancy query failed "
+                               "(cudaError %d)" % -wave)
+        pair_lanes = npat < wave
     err = lib.hal_phylop_fit(
         words.data_ptr(), edges.data_ptr(), edges.shape[0], prog.n_slots,
         codes.data_ptr(), npat, lo, hi, INVPHI, int(bool(sub)),
-        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), stream)
+        int(pair_lanes), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), stream)
     if err:
         raise RuntimeError("phylop_fit: CUDA launch failed (cudaError %d)"
                            % err)

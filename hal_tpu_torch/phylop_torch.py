@@ -62,6 +62,7 @@ class DevicePhyloP(torch.nn.Module):
                                 model._Uinv, model._lam, model.background,
                                 dtype=dtype, device=self.device)
         self._nodes, self._n_slots = prog.nodes, prog.n_slots
+        self._exp2_rates = prog.exp2_rates
         for name in ("U", "Uinv", "lam", "bg", "leaf_cols", "edges"):
             self.register_buffer(name, getattr(prog, name))
 
@@ -70,7 +71,7 @@ class DevicePhyloP(torch.nn.Module):
         return pf.FitProgram(nodes=self._nodes, n_slots=self._n_slots,
                              U=self.U, Uinv=self.Uinv, lam=self.lam,
                              bg=self.bg, leaf_cols=self.leaf_cols,
-                             edges=self.edges)
+                             edges=self.edges, exp2_rates=self._exp2_rates)
 
     def codes(self, patterns: np.ndarray) -> torch.Tensor:
         """Patterns (npat, nleaf) with columns ordered by leaf_idx as the

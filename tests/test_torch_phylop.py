@@ -218,31 +218,41 @@ def test_lnl_plain_equals_jax_lnl(tmp_path, newick):
 
 def _kernel_walk(prog, codes, scale, sub):
     """numpy emulation of csrc/phylop_fit.cu's lnl(): the int4 edge program
-    with its flags, the slot array and the precomputed leaf columns, in
-    float64."""
-    U, Uinv, lam, bg, leaf = (t.numpy() for t in (
-        prog.U, prog.Uinv, prog.lam, prog.bg, prog.leaf_cols))
+    in its visit order with its flags and slot indices, the precomputed leaf
+    columns, each edge's w = L + U (2^(exp2_rates t) - 1) Uinv @ L over the
+    states that are not unit states multiplied into a partial that starts
+    at 1, each node's partial scaled by 2^-e (e
+    the binary exponent of its largest state, frexp's) and the integer log
+    scale k, result log(max(bg . root, tiny)) + k ln2; in float64."""
+    U, Uinv, bg, leaf = (t.numpy() for t in (
+        prog.U, prog.Uinv, prog.bg, prog.leaf_cols))
+    rates = np.array(prog.exp2_rates)
+    keep = rates != 0
+    onehot = np.concatenate([np.eye(4), np.ones((4, 1))], axis=1)
     npat = codes.shape[1]
     slots = np.full((prog.n_slots, 4, npat), np.nan)
     L = np.ones((4, npat))
-    logscale = np.zeros(npat)
+    k = np.zeros(npat, np.int64)
     for child, parent, flags, bits in prog.edges.numpy():
         t = float(np.array(bits, np.int32).view(np.float32)) * scale
         if flags & pf.FLAG_IN_SUB:
             t = t * sub
         if flags & pf.FLAG_LEAF:
-            v = leaf[:, np.minimum(codes[child], 4)]
+            c = np.minimum(codes[child], 4)
+            Lc, v = onehot[:, c], leaf[:, c]
         else:
-            v = Uinv @ slots[child]
-        w = np.maximum(U @ (v * np.exp(lam[:, None] * t[None, :])), 0.0)
-        L = w if flags & pf.FLAG_FIRST else L * w
+            Lc = slots[child]
+            v = Uinv @ Lc
+        m = np.expm1(np.log(2.0) * rates[keep, None] * t[None, :])
+        w = np.maximum(Lc + U[:, keep] @ (v[keep] * m), 0.0)
+        L = L * w
         if flags & pf.FLAG_LAST:
-            mx = L.max(axis=0)
-            mx = np.where(mx > 0, mx, 1.0)
-            L = L / mx
-            logscale += np.log(mx)
-            slots[parent] = L
-    return np.log(np.maximum(bg @ L, prog.tiny)) + logscale
+            _m, e = np.frexp(L.max(axis=0))   # e = 0 for an all-zero partial
+            slots[parent] = np.ldexp(L, -e[None, :])
+            k += e
+            L = np.ones((4, npat))
+    L = slots[parent]
+    return np.log(np.maximum(bg @ L, prog.tiny)) + k * np.log(2.0)
 
 
 @pytest.mark.parametrize("newick", [BINARY8, MULTI, UNARY],
@@ -250,7 +260,11 @@ def _kernel_walk(prog, codes, scale, sub):
 def test_kernel_edge_program_equals_plain(tmp_path, newick):
     """What the kernel reads — the edge program, its flags and slots —
     walked as the kernel walks it gives lnl_plain's values (branch lengths
-    that float32 holds exactly, so the float64 walk is comparable)."""
+    that float32 holds exactly, so the float64 walk is comparable) on the
+    same model with its unit eigenvalue 0, which float32's exp already
+    rounds to (every exp of it is exactly 1 in float32)."""
+    import dataclasses
+
     pm, _jm, li = models(tmp_path, newick, seed=11)
     for n in pm.branch_length:
         pm.branch_length[n] = round(pm.branch_length[n] * 128) / 128
@@ -267,10 +281,72 @@ def test_kernel_edge_program_equals_plain(tmp_path, newick):
     rng = np.random.default_rng(13)
     scale, sub = rng.uniform(0.01, 4.0, 300), rng.uniform(0.3, 3.0, 300)
     codes = dev.codes(pats)
-    want = pf.lnl_plain(codes, torch.from_numpy(scale),
-                        torch.from_numpy(sub), prog).numpy()
+    assert prog.exp2_rates == tuple(
+        x / np.log(2.0) for x in pm._lam[:3]) + (0.0,)
+    t_max = 400 * max(pm.branch_length.values())
+    assert np.float32(np.exp(pm._lam[3] * t_max)) == 1
+    lam0 = prog.lam.clone()
+    lam0[3] = 0
+    want = pf.lnl_plain(codes, torch.from_numpy(scale), torch.from_numpy(sub),
+                        dataclasses.replace(prog, lam=lam0)).numpy()
     got = _kernel_walk(prog, codes.numpy().astype(np.int64), scale, sub)
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-13)
+
+
+def _simulate_slots(prog):
+    """Walk the kernel's edge program over slot states: every slot read is
+    of a partial written before and not yet consumed, no slot is written
+    while its partial is alive, and every partial but the root's is
+    consumed.  Returns the largest slot index used + 1."""
+    alive = {}
+    for child, parent, flags, _bits in prog.edges.numpy():
+        if not flags & pf.FLAG_LEAF:
+            assert alive.pop(int(child), None) == "written", child
+        if flags & pf.FLAG_LAST:
+            assert int(parent) not in alive, parent
+            alive[int(parent)] = "written"
+    assert len(alive) == 1
+    return int(prog.edges[:, 1].max()) + 1
+
+
+@pytest.mark.parametrize("n_leaves,seed,most", [(241, 71, 5), (16, 75, 2)])
+def test_program_layout_visits_by_slot_need(n_leaves, seed, most):
+    """The kernel's walk of chip_smoke's seeded trees (the 241-leaf tree
+    keeps 14 partials alive in JAX's postorder): at most `most` slots,
+    each node's edges in JAX's child order, no slot read before it is
+    written or overwritten while alive."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    mod = chip_smoke.seeded_model(n_leaves, seed)
+    leaves = [n for n in mod.tree.postorder() if mod.tree.is_leaf(n)]
+    dev = DevicePhyloP(mod, {n: i for i, n in enumerate(leaves)}, "CONACC",
+                       device="cpu")
+    prog = dev.program()
+    assert prog.n_slots <= most
+    assert _simulate_slots(prog) == prog.n_slots
+    # nodes keep JAX's postorder, children in JAX's order
+    assert [len(kids) for _k, kids in prog.nodes] == [len(k) for _n, k in
+                                                      dev._prog]
+    # each node's run of edges, in the walk, is its JAX child list
+    edges = prog.edges.numpy()
+    ends = np.flatnonzero(edges[:, 2] & pf.FLAG_LAST)
+    runs = np.split(edges, ends[:-1] + 1)
+    by_kids = sorted(tuple((bool(leaf), int(i) if leaf else -1,
+                            float(np.float32(bl)))
+                           for leaf, i, bl, _s in kids)
+                     for _k, kids in prog.nodes)
+    got = sorted(tuple((bool(f & pf.FLAG_LEAF),
+                        int(c) if f & pf.FLAG_LEAF else -1,
+                        float(np.array(b, np.int32).view(np.float32)))
+                       for c, _p, f, b in run) for run in runs)
+    assert got == by_kids
+    # JAX's postorder keeps more partials alive at once (14 and 3)
+    alive = peak = 0
+    for _k, kids in prog.nodes:
+        alive += 1 - sum(not leaf for leaf, *_ in kids)
+        peak = max(peak, alive)
+    assert peak > prog.n_slots
 
 
 def test_program_slots_reused_and_bounded():
@@ -375,6 +451,11 @@ def test_fit_wrapper_on_cpu_and_its_checks(tmp_path):
     words = pf.model_words(prog)
     assert words.dtype == torch.float32 and words.numel() == 61
     assert torch.equal(words[32:36], prog.leaf_cols[:, 0].float())
+    # lam * log2(e) with the unit state's 0, as csrc/phylop_fit.cu's lam2
+    assert torch.equal(words[52:56], torch.tensor(prog.exp2_rates).float())
+    assert words[55] == 0
+    with pytest.raises(ValueError, match="not its eigenvalue 0"):
+        pf.exp2_rates([-1.5, -1.0, -0.5, -0.1])
     assert float(words[-1]) == pytest.approx(1e-300) or words[-1] == 0
 
 
@@ -635,8 +716,11 @@ def test_cuda_without_card_raises(cli_fixture, monkeypatch, capsys):
 @pytest.mark.cuda
 def test_cuda_phylop_kernel_equals_plain(tmp_path):
     """The fit kernel and its likelihood entry against the plain version on
-    the card (float32): log-likelihoods within rtol 1e-5, scores within
-    the float32 tolerance of each other and of the float64 numpy fit."""
+    the card: log-likelihoods within rtol 1e-5 of the float64 plain version
+    (the float32 one, JAX's arithmetic, is itself up to ~2e-5 off it),
+    scores within the float32 tolerance of each other and of the float64
+    numpy fit; the fit deterministic, and bit-identical in both launch
+    shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     pm, _jm, li = models(tmp_path, BINARY8, seed=41)
@@ -653,10 +737,13 @@ def test_cuda_phylop_kernel_equals_plain(tmp_path):
         got = pf.phylop_lnl(codes, s, ss, prog)
         torch.cuda.synchronize()
         assert pf.phylop_lnl.launches == before + 1
-        want = pf.lnl_plain(codes, s, ss, prog)
+        prog64 = DevicePhyloP(pm, li, mode, sub, dtype=torch.float64,
+                              device="cuda").program()
+        want = pf.lnl_plain(codes, s.double(), ss.double(), prog64)
         # relative to |lnl| >= 1: the all-missing column's lnl is 0 up to
         # rounding
-        rel = ((got - want).abs() / want.abs().clamp(min=1)).max().item()
+        rel = ((got.double() - want).abs()
+               / want.abs().clamp(min=1)).max().item()
         assert rel <= 1e-5, rel
         before = pf.phylop_fit.launches
         k = dev.score_patterns(pats)
@@ -669,3 +756,9 @@ def test_cuda_phylop_kernel_equals_plain(tmp_path):
         at_k = pf.lnl_plain(codes, fit_k[1], fit_k[2], prog)
         at_p = pf.lnl_plain(codes, fit_p[1], fit_p[2], prog)
         assert (at_k - at_p).abs().max().item() < 1e-2
+        # both launch shapes give the same bits, and so does a second call
+        one = pf._fit_kernel(codes, prog, mode, bool(sub), False)
+        two = pf._fit_kernel(codes, prog, mode, bool(sub), True)
+        again = pf._fit_kernel(codes, prog, mode, bool(sub), False)
+        assert all(torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, k)
+                   for a, b, c, k in zip(one, two, again, fit_k))
