@@ -36,12 +36,26 @@ printing its seconds:
      depth_counts; then the halAlignmentDepth and halWiggleLiftover
      (its default --batchSize, 16384 runs a call) CLIs on the CLI
      alignment, --device cuda bytes equal to --device cpu;
+  5b. the sharded steps (hal_tpu_torch.parallel) on phase 3's fixture,
+     over an NCCL process group of world size 1 with 4 local shards on the
+     card: the replicated step at mesh (2, 2) and the table-sharded step
+     at D = 4 on exact per-shard host caps, each with its valid fragments
+     (as sorted rows) equal to the single-device _run_path's and its
+     histogram equal to an int64 histogram of them; the ring-sharded step
+     at D = 4 held to the single-device path by the mapped bases per owner,
+     the target coverage of the first 2^27 columns and 2,048 sampled
+     owners' base pairs against the host mapper; distributed_coverage of
+     the first 2^27 target columns against the single-device coverage;
+     merge_sorted_blocks of the 2^20 lo values against np.sort.  Each step
+     timed by CUDA events over 10 calls, with the profiler's device ms and
+     the share of it in NCCL kernels;
   6. the device column engine (hal2maf) on bench.py's MAF fixture (seed
      11, 10 genomes of 2^20 segments of 128-129 bp, DNA): the first
      2^21-column window through the native assembler byte-equal to the
-     native DFS engine, then six windows timed (device phase and end to
-     end), and the hal2maf CLI on a smaller DNA alignment, --device cuda
-     bytes equal to --device cpu.
+     native DFS engine, the sharded column step at 4 local shards over the
+     same window byte-equal to it too, then six windows timed (device phase
+     and end to end), and the hal2maf CLI on a smaller DNA alignment,
+     --device cuda bytes equal to --device cpu.
   7. the phyloP fit: phylop_lnl against lnl_plain in float64 (max
      relative error 1e-5; the float32 plain version's own error printed
      beside it), both launch shapes of phylop_fit bit-identical at 2^14
@@ -57,7 +71,9 @@ printing its seconds:
      --device cpu.
 Phases 4-7 each drive a path with the launch counts set to 0 just before
 and read just after; the three Pallas kernels' ports must launch on every
-path, and phylop_fit on the phyloP path.
+path (on the "sharded" path, on each step's first call: the four steps of
+phase 5b and the sharded column step of phase 6), and phylop_fit on the
+phyloP path.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -94,6 +110,8 @@ WIG_BLOCKS = 400
 MAF_SEGMENTS = 1 << 20
 MAF_WINDOW = 1 << 21
 MAF_TIMED_WINDOWS = 6
+SHARDS = 4                   # local shards on the one card
+SHARDED_BINS = 1024          # the replicated step's histogram bins
 PHYLOP_LEAVES = 241          # the 241-mammal phyloP runs on Cactus alignments
 PHYLOP_PATTERNS = 1 << 20    # one window of columns, nearly all unique
 PHYLOP_SCORED = 1 << 14
@@ -162,7 +180,8 @@ def device_ms(fn, iters: int = 20, stats: dict | None = None):
     """Device time of fn() per call from torch.profiler: the sum over the
     CUDA kernels and copies it ran, and those per name, largest first.
     stats, if given, receives "launches": the device kernels and copies
-    per call."""
+    per call, and "mesh": the device ms per call under the mesh's
+    collective ranges (mesh.psum, mesh.all_gather, mesh.all_to_all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -183,6 +202,9 @@ def device_ms(fn, iters: int = 20, stats: dict | None = None):
         if rows:
             if stats is not None:
                 stats["launches"] = sum(e.count for e in events) / iters
+                stats["mesh"] = sum(e.device_time_total / 1e3 / iters
+                                    for e in prof.key_averages()
+                                    if e.key.startswith("mesh."))
             return sum(ms for _, ms in rows), rows
     raise AssertionError("torch.profiler recorded no device time")
 
@@ -755,7 +777,8 @@ def phase_bench_scale(dev):
     log("  wire D2H copy: %.4fs/batch; host decode_runs_packed: %.4fs/batch"
         % (t1 - t0, time.perf_counter() - t1))
     return {"aln": aln, "src": src, "tgt": tgt, "lo": lo, "hi": hi,
-            "sample": sample, "want": want}
+            "sample": sample, "want": want, "path": path, "caps": caps,
+            "totals": totals}
 
 
 def cli_fixture(tmp: str):
@@ -1072,6 +1095,248 @@ def phase_depth(dev, bench, tmp, cli) -> dict:
     return launches
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sorted_columns(F):
+    """F's valid columns (int64), sorted as rows over all 8 fields: the
+    fragment multiset, whatever the slot layout."""
+    import torch
+
+    M = F[:, F[6] > 0].to(torch.int64)
+    for r in range(M.shape[0] - 1, -1, -1):
+        M = M[:, torch.sort(M[r], stable=True).indices]
+    return M
+
+
+def window_coverage(F, width: int):
+    """Per-position target coverage of F's valid fragments over [0, width)
+    (int64 diff + cumsum on the device)."""
+    import torch
+
+    valid = (F[6] > 0).to(torch.int64)
+    d = torch.zeros(width + 1, dtype=torch.int64, device=F.device)
+    d.index_add_(0, torch.clamp(F[2].to(torch.int64), 0, width), valid)
+    d.index_add_(0, torch.clamp(F[3].to(torch.int64), 0, width), -valid)
+    return torch.cumsum(d, 0)[:width]
+
+
+def host_histogram(F, tgt_len: int, n_bins: int) -> np.ndarray:
+    """int64 numpy histogram of F's valid fragments' target bases, binned
+    by t_lo (the replicated step's binning, computed on the host)."""
+    M = F[:, F[6] > 0].cpu().numpy().astype(np.int64)
+    h = np.zeros(n_bins, np.int64)
+    np.add.at(h, np.clip(M[2] * n_bins // tgt_len, 0, n_bins - 1),
+              M[3] - M[2])
+    return h
+
+
+def owner_pairs(s_lo, s_hi, t_lo, t_hi, rev, own):
+    """(owner, src base, tgt base, rev) rows of fragments, deduplicated."""
+    ln = (s_hi - s_lo).astype(np.int64)
+    rep = np.repeat(np.arange(len(ln)), ln)
+    k = np.arange(int(ln.sum())) - (np.cumsum(ln) - ln)[rep]
+    tgt = np.where(rev[rep] > 0, t_hi[rep] - 1 - k, t_lo[rep] + k)
+    return np.unique(np.stack([own[rep], s_lo[rep] + k, tgt, rev[rep]],
+                              axis=1), axis=0)
+
+
+def time_step(name: str, fn, counts: dict) -> dict:
+    """A sharded step's CUDA-event ms over 10 calls, the profiler's device
+    ms per call, and the share of it in its collectives (the mesh's
+    ranges: local copies and NCCL alike) and in NCCL kernels; counts are
+    its launches from 0 on its first call."""
+    ev = time_ms(fn, iters=TIMED_ITERS)
+    stats = {}
+    dev_ms, rows = device_ms(fn, iters=2, stats=stats)
+    nccl = sum(ms for k, ms in rows if "nccl" in k.lower())
+    log("  %s: %.3f ms a call (CUDA events, %d calls), %.3f ms device "
+        "(profiler) in %d launches: collectives %.4f ms (%.1f%%), of which "
+        "NCCL kernels %.4f ms; launches %s; top: %s"
+        % (name, ev, TIMED_ITERS, dev_ms, stats["launches"], stats["mesh"],
+           100 * stats["mesh"] / dev_ms, nccl, counts,
+           "; ".join("%s %.3f" % (k[:40], ms) for k, ms in rows[:4])))
+    return {"event_ms": ev, "device_ms": dev_ms, "mesh_ms": stats["mesh"],
+            "nccl_ms": nccl}
+
+
+def phase_sharded(dev, bench, group) -> dict:
+    """The sharded steps on phase 3's fixture, over the NCCL group of world
+    size 1 with SHARDS local shards on the card, each held to the
+    single-device path.  Returns the kernels' launches summed over the
+    steps' first calls (each from 0), and each step's times."""
+    import torch
+
+    from hal_tpu_torch.graft_entry import per_shard_caps
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.ops import segmap_torch as st
+    from hal_tpu_torch.ops import tables
+    from hal_tpu_torch.parallel import distributed as dist
+    from hal_tpu_torch.parallel import ring_sharded as pr
+    from hal_tpu_torch.parallel import sharded as ps
+
+    t_phase = time.perf_counter()
+    aln, src, tgt = bench["aln"], bench["src"], bench["tgt"]
+    lo, hi, path = bench["lo"], bench["hi"], bench["path"]
+    n = len(lo)
+    owner = np.arange(n, dtype=np.int64)
+    tgt_len = int(aln.open_genome(tgt).length)
+    log("phase 5b sharded: %s -> %s, %d intervals, NCCL group of world "
+        "size %d, %d local shards on %s"
+        % (src, tgt, n, torch.distributed.get_world_size(group), SHARDS,
+           torch.cuda.get_device_name(dev)))
+    lo_d, hi_d, own_d = (st.coords(path, x) for x in (lo, hi, owner))
+    F_ref = st._run_path(path, lo_d, hi_d, own_d, bench["caps"])[0]
+    ref_cols = sorted_columns(F_ref)
+    launched = {k: 0 for k in K.launches()}
+    timings = {}
+
+    def first_call(name, fn):
+        K.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = K.launches()
+        check_launched(counts, "sharded (%s)" % name)
+        for k, c in counts.items():
+            launched[k] += c
+        return out, counts
+
+    def same_fragments(F, what):
+        got = sorted_columns(F)
+        if not torch.equal(got, ref_cols):
+            raise AssertionError("%s: %d valid fragments != the single-device "
+                                 "path's %d (or their rows differ)"
+                                 % (what, got.shape[1], ref_cols.shape[1]))
+
+    # 1. replicated tables, mesh (2, 2), exact per-shard host caps
+    t0 = time.perf_counter()
+    sim = tables._HostSim(aln, do_dupes=True)
+    caps1 = per_shard_caps(aln, src, tgt, path, lo, hi, SHARDS // 2, sim)
+    caps4 = per_shard_caps(aln, src, tgt, path, lo, hi, SHARDS, sim)
+    log("  host caps per shard: %.1fs; mesh (2, 2) %s, D = %d %s"
+        % (time.perf_counter() - t0, caps1, SHARDS, caps4))
+    grid = ps.make_mesh(SHARDS // 2, 2, device=dev, group=group)
+    args1 = ps.shard_batch(grid, lo, hi, owner)
+    step1 = ps.make_sharded_step(path, caps1, tgt_len, SHARDED_BINS, grid)
+    (F1, cov1), c = first_call("replicated", lambda: step1(*args1))
+    same_fragments(F1, "replicated step")
+    cov1 = cov1.cpu().numpy()
+    if not np.array_equal(cov1, host_histogram(F1, tgt_len, SHARDED_BINS)):
+        raise AssertionError("replicated step histogram != int64 host "
+                             "histogram of its fragments")
+    log("  replicated step (mesh (2, 2)): %d fragments equal the "
+        "single-device path's; %d-bin histogram (sum %d) equal to an int64 "
+        "histogram of them" % (ref_cols.shape[1], SHARDED_BINS, cov1.sum()))
+    timings["replicated"] = time_step("replicated step",
+                                      lambda: step1(*args1), c)
+    del F1
+
+    # 2. table-sharded, D = SHARDS
+    mesh = ps.make_mesh(SHARDS, 1, device=dev, group=group)
+    args = ps.shard_batch(mesh, lo, hi, owner)
+    path_sh = ps.shard_path_tables(path, mesh)
+    step2 = ps.make_table_sharded_step(path_sh, caps4, mesh)
+    (F2, ovf2), c = first_call("table-sharded", lambda: step2(*args))
+    if bool(ovf2.any().item()):
+        raise AssertionError("table-sharded step overflow on exact caps")
+    same_fragments(F2, "table-sharded step")
+    if not np.array_equal(host_histogram(F2, tgt_len, SHARDED_BINS), cov1):
+        raise AssertionError("table-sharded histogram != the replicated "
+                             "step's")
+    log("  table-sharded step (D = %d, tables at rest %s per shard): "
+        "fragments and histogram equal" % (SHARDS, [tuple(lv.grid.shape)
+                                                    for lv in path_sh.levels]))
+    timings["table"] = time_step("table-sharded step", lambda: step2(*args), c)
+    del F2
+
+    # 3. ring-sharded, D = SHARDS: caps from the host totals with slack,
+    # doubled on overflow (generous caps + retry, as the original).  A
+    # near-collinear alignment routes most of a shard's fragments to one
+    # shard, so a send bucket gets a shard's whole share, not 1/D of it.
+    rls = pr.build_ring_path(path, SHARDS)
+    fin = [n] + [sv + rv for sv, rv in bench["totals"]]
+
+    def ring_caps(mult):
+        return tuple(tuple(tables._bucket_cap(mult * x) for x in (
+            fin[i] // SHARDS + 4096, fin[i] // SHARDS + 4096,
+            sv // SHARDS + 4096, (rv // SHARDS + 4096) if rv else 0))
+            for i, (sv, rv) in enumerate(bench["totals"]))
+
+    mult = 1.5
+    while True:
+        caps3 = ring_caps(mult)
+        step3 = pr.make_ring_sharded_step(rls, caps3, mesh)
+        (F3, ovf3), c = first_call("ring-sharded", lambda: step3(*args))
+        if not bool(ovf3.any().item()):
+            break
+        log("  ring caps %s overflowed: doubling" % (caps3,))
+        mult *= 2
+        if mult > 48:
+            raise AssertionError("ring-sharded step: capacity blowup")
+    bases = [torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, F[5].long().clamp(0, n - 1),
+        torch.where(F[6] > 0, F[1] - F[0], 0).to(torch.int64))
+        for F in (F_ref, F3)]
+    if not torch.equal(bases[0], bases[1]):
+        raise AssertionError("ring-sharded step: mapped bases per owner "
+                             "differ from the single-device path")
+    W = min(DEPTH_WINDOW, tgt_len)
+    cov_ref = window_coverage(F_ref, W)
+    if not torch.equal(window_coverage(F3, W), cov_ref):
+        raise AssertionError("ring-sharded step: target coverage over "
+                             "[0, %d) differs" % W)
+    M = F3[:, F3[6] > 0].cpu().numpy().astype(np.int64)
+    sample = bench["sample"]
+    M = M[:, np.isin(M[5], sample)]
+    got = owner_pairs(M[0], M[1], M[2], M[3], M[4], M[5])
+    runs = np.array([(o,) + r for o in sample for r in bench["want"][int(o)]],
+                    np.int64)
+    want = owner_pairs(runs[:, 1], runs[:, 2], runs[:, 3], runs[:, 4],
+                       runs[:, 5], runs[:, 0])
+    if not np.array_equal(got, want):
+        raise AssertionError("ring-sharded step: sampled owners' base pairs "
+                             "differ from the host mapper")
+    log("  ring-sharded step (D = %d, caps %s): %d valid fragments; bases "
+        "per owner and coverage of [0, %d) equal the single-device path's; "
+        "%d sampled owners' %d base pairs equal the host mapper's"
+        % (SHARDS, caps3, int((F3[6] > 0).sum().item()), W, len(sample),
+           len(want)))
+    timings["ring"] = time_step("ring-sharded step", lambda: step3(*args), c)
+    del F3, bases, M
+
+    # 4. distributed_coverage over the first 2^27 target columns
+    cov, c = first_call("distributed_coverage",
+                        lambda: dist.distributed_coverage(path, caps4, W, mesh,
+                                                          *args))
+    if not np.array_equal(cov, cov_ref.cpu().numpy()):
+        raise AssertionError("distributed_coverage != the single-device "
+                             "path's coverage of [0, %d)" % W)
+    log("  distributed_coverage of [0, %d): equal to the single-device "
+        "path's (%d covered columns)" % (W, int((cov > 0).sum())))
+    timings["coverage"] = time_step(
+        "distributed_coverage",
+        lambda: dist.distributed_coverage(path, caps4, W, mesh, *args), c)
+    del cov, cov_ref
+
+    # 5. merge_sorted_blocks of the lo values
+    t0 = time.perf_counter()
+    merged = dist.merge_sorted_blocks(np.sort(lo), device=dev, group=group)
+    if not np.array_equal(merged, np.sort(lo)):
+        raise AssertionError("merge_sorted_blocks != np.sort")
+    log("  merge_sorted_blocks of %d lo values equal np.sort (%.2fs)"
+        % (n, time.perf_counter() - t0))
+    del F_ref, ref_cols, path_sh
+    torch.cuda.empty_cache()
+    log("phase 5b passed in %.1fs; launches over the steps' first calls %s"
+        % (time.perf_counter() - t_phase, launched))
+    return launched, timings
+
+
 def build_maf_alignment(n_segments: int, seed: int = 11):
     """bench.py's MAF fixture (bench_hal2maf): 10 genomes of n_segments
     segments of 128-129 bp, with DNA."""
@@ -1084,11 +1349,51 @@ def build_maf_alignment(n_segments: int, seed: int = 11):
         max_segments=n_segments + 100, fast_dna=True)
 
 
-def phase_maf(dev, tmp) -> tuple:
+def sharded_column_window(dev, group, aln, ref, eng, want: bytes, W: int):
+    """The sharded column step at SHARDS local shards over [0, W): the
+    native assembler's bytes from collect_sharded must equal `want`.
+    Returns the kernels' launches on its first call and its times."""
+    import torch
+
+    from hal_tpu_torch.ops import column_torch as ct
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.ops.column_native import NativeMafExporter
+    from hal_tpu_torch.parallel.sharded import make_mesh
+
+    t0 = time.perf_counter()
+    edges = np.linspace(0, W, SHARDS + 1).astype(np.int64)
+    caps_all, oc_all = ct.size_sharded_caps(eng, edges)
+    t_size = time.perf_counter() - t0
+    mesh = make_mesh(SHARDS, 1, device=dev, group=group)
+    step = ct.make_sharded_column_step(eng, caps_all, oc_all, mesh)
+    lo, hi = (torch.from_numpy(e.copy()).to(dev) for e in (edges[:-1],
+                                                         edges[1:]))
+    K.reset_launches()
+    outs = step(lo, hi)
+    torch.cuda.synchronize()
+    counts = K.launches()
+    check_launched(counts, "sharded (column step)")
+    ex = NativeMafExporter(aln, ref)
+    got = ex.export_frags(0, W, ct.collect_sharded(eng, outs, edges)) + \
+        ex.finish()
+    ex.close()
+    if got != want:
+        raise AssertionError("sharded column step MAF != native DFS MAF on "
+                             "[0, %d) (%d vs %d bytes)"
+                             % (W, len(got), len(want)))
+    log("  sharded column step (D = %d local shards, edges %s): MAF bytes "
+        "equal to the native DFS engine's; per-shard host sizing %.2fs"
+        % (SHARDS, edges.tolist(), t_size))
+    return counts, time_step("sharded column step", lambda: step(lo, hi),
+                             counts)
+
+
+def phase_maf(dev, tmp, group) -> tuple:
     """The device column engine at bench scale through the native
-    assembler, then the hal2maf CLI.  Returns the kernels' launches on the
-    first MAF window, and (the MAF fixture, its reference, the CLI's halz,
-    its reference) for phase 7."""
+    assembler (and the sharded column step on the first window), then the
+    hal2maf CLI.  Returns the kernels' launches on the first MAF window,
+    the sharded column step's launches and times, and (the MAF fixture,
+    its reference, the CLI's halz, its reference) for phase 7."""
     import torch
 
     from hal_tpu_torch.ops import kernels as K
@@ -1138,6 +1443,7 @@ def phase_maf(dev, tmp) -> tuple:
         "(DFS %.2fs; device engine, first window incl. host sizing, %.2fs); "
         "launches per window %s" % (W, len(want) / 1e6, t_dfs, t_first,
                                     launches))
+    sharded = sharded_column_window(dev, group, aln, ref, eng, want, W)
 
     # e2e: dispatch, drain, host decode and native assembly per window
     ex = NativeMafExporter(aln, ref)
@@ -1231,7 +1537,7 @@ def phase_maf(dev, tmp) -> tuple:
         % (ref2, small.open_genome(ref2).length / 1e6, small.num_genomes, n,
            t_cuda, t_cpu, c))
     log("phase 6 passed in %.1fs" % (time.perf_counter() - t_phase))
-    return launches, (aln, ref, hal, ref2)
+    return launches, sharded, (aln, ref, hal, ref2)
 
 
 def seeded_model(n_leaves: int, seed: int):
@@ -1796,15 +2102,22 @@ def main() -> int:
     t0 = time.perf_counter()
     bench = phase_bench_scale(dev)
     log("phase 3 passed in %.1fs" % (time.perf_counter() - t0))
-    with tempfile.TemporaryDirectory() as tmp:
+    from hal_tpu_torch.parallel import distributed
+
+    with tempfile.TemporaryDirectory() as tmp, distributed.initialize(
+            "localhost:%d" % free_port(), 1, 0, device=dev) as group:
         t0 = time.perf_counter()
         cli = cli_fixture(tmp)
         counts = phase_main_path(dev, bench, tmp, cli)
         log("phase 4 passed in %.1fs" % (time.perf_counter() - t0))
         paths = {"liftover": counts,
                  "depth": phase_depth(dev, bench, tmp, cli)}
+        paths["sharded"], sharded_ms = phase_sharded(dev, bench, group)
         del bench
-        paths["maf"], maf = phase_maf(dev, tmp)
+        paths["maf"], (col_counts, sharded_ms["column"]), maf = phase_maf(
+            dev, tmp, group)
+        for k, c in col_counts.items():
+            paths["sharded"][k] += c
         rec["phylop_fit"], paths["phylop"] = phase_phylop(dev, maf, tmp)
         del maf
     for name in PALLAS_PORTS:
@@ -1812,6 +2125,11 @@ def main() -> int:
     rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]
     for name in rec:
         rec[name]["launches_by_path"] = {p: n[name] for p, n in paths.items()}
+    log("sharded steps at %d local shards, ms a call (CUDA events / device "
+        "/ collectives / NCCL kernels): %s"
+        % (SHARDS, {k: [round(v[m], 4) for m in (
+            "event_ms", "device_ms", "mesh_ms", "nccl_ms")]
+            for k, v in sharded_ms.items()}))
     log("all phases passed in %.1fs" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [rec[k] for k in PALLAS_PORTS
                                   + ("phylop_fit",)]}))

@@ -1,6 +1,6 @@
 """hal_tpu_torch — hal_tpu's device paths (batched liftover, alignment
-depth, the hal2maf column engine, the phyloP fit) in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+depth, the hal2maf column engine, the phyloP fit, the sharded steps) in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package hal_tpu stays the reference.  This package imports
 nothing of it and never imports jax: it keeps its own numpy-only copies of
@@ -31,6 +31,11 @@ hal_tpu's so each counterpart is easy to find:
                         wrappers (phylop_jax.py's traced program)
   phylop_torch.py       DevicePhyloP (phylop_jax.py)
   parallel/mp.py        copy of the process-parallel helpers
+  parallel/mesh.py      a mesh of P processes x L local shards and its
+                        collectives over torch.distributed (jax.sharding)
+  parallel/sharded.py, parallel/ring_sharded.py, parallel/distributed.py
+                        the sharded steps (hal_tpu/parallel/*)
+  graft_entry.py        entry() and dryrun_multichip (__graft_entry__.py)
   tools/__init__.py     copy of the tools' parser and error conventions
   tools/*.py            the CLIs, with --device {cuda,cpu}
   csrc/*.cu             the CUDA sources, built by ops/_build.py

@@ -769,3 +769,73 @@ class DeviceColumnEngine:
         return exporter.export_frags(
             gs, ge, self.window_frags(gs, ge),
             no_ancestors=self.no_ancestors, targets=self.targets)
+
+
+# ------------------------------------------------------- multichip step
+
+def size_sharded_caps(eng: DeviceColumnEngine, edges):
+    """Elementwise-max capacities across window shards (one exact host
+    sizing per shard, so one set of capacities serves every shard)."""
+    caps_all, oc_all = [], []
+    for ji in range(len(eng.jobs)):
+        caps_m = None
+        oc_m = 0
+        for k in range(len(edges) - 1):
+            caps, oc = eng._size(ji, int(edges[k]), int(edges[k + 1]))
+            if caps_m is None:
+                caps_m = list(caps)
+            else:
+                caps_m = [tuple(max(a, b) for a, b in zip(c1, c2))
+                          if isinstance(c1, tuple) else max(c1, c2)
+                          for c1, c2 in zip(caps_m, caps)]
+            oc_m = max(oc_m, oc)
+        caps_all.append(tuple(caps_m))
+        oc_all.append(oc_m)
+    return tuple(caps_all), tuple(oc_all)
+
+
+def make_sharded_column_step(eng: DeviceColumnEngine, caps_all, oc_all, mesh):
+    """Column step with the reference window sharded over the mesh's data
+    axis (a parallel.mesh.Mesh): each data shard runs EVERY column program
+    on its sub-window with the engine's level tables (the hal2mafMP.py
+    coordinate-slicing pattern).  Sub-window edges are cut points, so the
+    shards' fragments concatenate into the global column structure
+    (slices never span shards).
+
+    Returns step(lo, hi) -> tuple per job of (out (n_local_data, 5,
+    out_cols), total (n_local_data,), overflow (n_local_data,)): lo and hi
+    hold one sub-window edge per local data shard."""
+    jobs = eng.jobs
+
+    def step(lo, hi):
+        outs = [([], [], []) for _ in jobs]
+        for lo_i, hi_i in zip(mesh.split(lo.to(eng.coord_dtype)),
+                              mesh.split(hi.to(eng.coord_dtype))):
+            for (_t, _spec, levels, meta), caps, oc, acc in zip(
+                    jobs, caps_all, oc_all, outs):
+                for a, x in zip(acc, _program_body(levels, lo_i, hi_i, caps,
+                                                   meta, oc)):
+                    a.append(x)
+        return tuple((torch.stack(o), torch.stack(t), torch.stack(v))
+                     for o, t, v in outs)
+
+    return step
+
+
+def collect_sharded(eng: DeviceColumnEngine, outs, edges):
+    """Decode a sharded column step's outputs (every data shard's, in data
+    order) into the engine's {target: [(ordinal, _St)]} form: fragments
+    concatenated across shards; per-slice row order is unaffected because
+    no slice spans a shard boundary."""
+    out: dict = {t: [] for t in eng.programs}
+    for ji, (o, tot, ovf) in enumerate(outs):
+        t, spec, _levels, _meta = eng.jobs[ji]
+        if bool(ovf.any().item()):
+            raise RuntimeError("sharded column overflow")
+        O = o.cpu().numpy()
+        T = tot.cpu().numpy()
+        M = np.concatenate([O[d, :, :int(T[d])].astype(np.int64)
+                            for d in range(O.shape[0])], axis=1)
+        out[t].append((spec.ordinal, _St(M[0], M[1], M[2], M[3], M[4])))
+    return eng._postsplit(eng._with_identity(out, int(edges[0]),
+                                             int(edges[-1])))

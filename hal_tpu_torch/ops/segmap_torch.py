@@ -41,7 +41,7 @@ Every entry point takes an explicit `device`; tensors of a path live on it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -99,16 +99,23 @@ def _level(kind, grid, seg_table, ring_mem_tab, max_ring, page_tab,
     def t(a, d):
         return torch.from_numpy(np.array(a, d)).to(device)
 
-    grid_t = t(grid, dt)
+    return with_search_tables(Level(
+        kind=str(kind), grid=t(grid, dt), seg_table=t(seg_table, dt),
+        ring_mem_tab=t(ring_mem_tab, dt), max_ring=int(max_ring),
+        page_tab=None if page_tab is None else t(page_tab, np.int32),
+        page_shift=int(page_shift), u32=bool(u32)))
+
+
+def with_search_tables(level: Level) -> Level:
+    """The level with the searchsorted kernel's tables (grid_i32, fences8,
+    search_tree) built from its grid, where the kernel takes a grid of that
+    dtype and length; a level whose grid it does not take keeps None."""
     grid_i32 = f8 = tree = None
-    if (u32 or dt == np.int32) and len(grid) <= _KERNEL_GRID_LIMIT:
-        grid_i32 = kernels.bias_u32(grid_t) if u32 else grid_t
+    if ((level.u32 or level.grid.dtype == torch.int32)
+            and level.grid.shape[0] <= _KERNEL_GRID_LIMIT):
+        grid_i32 = kernels.bias_u32(level.grid) if level.u32 else level.grid
         f8, tree = kernels.search_tables(grid_i32)
-    return Level(kind=str(kind), grid=grid_t, seg_table=t(seg_table, dt),
-                 ring_mem_tab=t(ring_mem_tab, dt), max_ring=int(max_ring),
-                 page_tab=None if page_tab is None else t(page_tab, np.int32),
-                 page_shift=int(page_shift), u32=bool(u32), grid_i32=grid_i32,
-                 fences8=f8, search_tree=tree)
+    return replace(level, grid_i32=grid_i32, fences8=f8, search_tree=tree)
 
 
 @dataclass(frozen=True)
@@ -478,10 +485,14 @@ def _final_bound(F):
     return torch.max(torch.where(valid, idx + 1, 0))
 
 
-def _run_path(path: PathData, lo, hi, owner, caps):
+def _run_path(path: PathData, lo, hi, owner, caps, level_xform=None):
     """Run the whole path; returns the packed (8, cap) fragment matrix, the
     last-valid bound, the overflow flag and per-level (split, ring) totals.
-    caps is consumed in traversal order, as segmap_jax._run_path."""
+    caps is consumed in traversal order, as segmap_jax._run_path.
+
+    level_xform: optional Level -> Level hook applied as each level is
+    consumed; the table-sharded step (parallel.sharded) gathers a level's
+    tables with it right before the hop."""
     n = lo.shape[0]
     dt = lo.dtype
     ml = path.min_length
@@ -500,6 +511,8 @@ def _run_path(path: PathData, lo, hi, owner, caps):
 
     def apply_level(level, F):
         nonlocal overflow
+        if level_xform is not None:
+            level = level_xform(level)
         split_cap, ring_cap = next_cap()
         F, ring_counts, ring_offsets, stot, ov1 = _split_hop(level, F,
                                                              split_cap, ml)

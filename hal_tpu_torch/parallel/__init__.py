@@ -1,2 +1,3 @@
-"""Process-parallel helpers of the port (copies of hal_tpu.parallel's
-host modules)."""
+"""The port of hal_tpu.parallel: the sharded steps over torch.distributed
+(mesh, sharded, ring_sharded, distributed) and a copy of the
+process-parallel helpers (mp)."""

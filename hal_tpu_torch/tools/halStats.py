@@ -1,7 +1,7 @@
 """Port copy of hal_tpu/tools/halStats.py (numpy only; the same code,
-imports pointing at hal_tpu_torch), except --percentID, --coverage and
---allCoverage, whose modules (halPctId, halCoverage) are not in the port:
-they raise HalError.  The port's parallel/mp.py runs it.
+imports pointing at hal_tpu_torch; --percentID, --coverage and
+--allCoverage run the port's copies of halPctId and halCoverage).  The
+port's parallel/mp.py runs it.
 
 halStats — alignment statistics (reference stats/impl/halStatsMain.cpp).
 
@@ -19,9 +19,6 @@ import numpy as np
 
 from hal_tpu_torch.storage import open_alignment
 from hal_tpu_torch.tools import HalError, add_storage_options, make_parser, tool_main
-
-
-_NOT_PORTED = "halStats %s: its module is not in the port"
 
 
 def _fmt_g(x: float) -> str:
@@ -138,9 +135,14 @@ def print_metadata(os, md):
 
 
 def print_coverage(os, aln, genome_and_seed, num_samples=1000000):
-    """Sampling-based coverage histogram (reference stats/impl/halCoverage.cpp):
-    halCoverage is not in the port."""
-    raise HalError(_NOT_PORTED % "--coverage")
+    """Sampling-based coverage histogram (reference stats/impl/halCoverage.cpp).
+
+    Deferred to the column/mapping engine: implemented in
+    hal_tpu_torch.tools.halCoverage; this mode delegates there.
+    """
+    from hal_tpu_torch.tools import halCoverage
+
+    halCoverage.print_coverage(os, aln, genome_and_seed, num_samples)
 
 
 def run(argv=None):
@@ -214,11 +216,15 @@ def run(argv=None):
     elif o.bottomSegments:
         print_segments(os, aln, o.bottomSegments, False)
     elif o.percentID:
-        raise HalError(_NOT_PORTED % "--percentID")
+        from hal_tpu_torch.tools import halPctId
+
+        halPctId.print_percent_id(os, aln, o.percentID)
     elif o.coverage:
         print_coverage(os, aln, o.coverage)
     elif o.allCoverage:
-        raise HalError(_NOT_PORTED % "--allCoverage")
+        from hal_tpu_torch.tools import halCoverage
+
+        halCoverage.print_all_coverage(os, aln)
     else:
         print_default(os, aln)
 

@@ -7,6 +7,7 @@ trees, records and bytes)."""
 
 import dataclasses
 import io
+import os
 
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ from hal_tpu_torch.ops import liftover_bulk as port_bulk
 from hal_tpu_torch.ops import segmap_host as port_sm
 from hal_tpu_torch.randgen import create_random_alignment
 from hal_tpu_torch.storage import open_alignment, save_alignment
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 FIXTURE = dict(seed=21, max_genomes=7, min_genomes=5, mean_degree=1.4,
                min_segments=8, max_segments=50, min_segment_length=3,
@@ -431,10 +434,10 @@ def stats_halz(tmp_path_factory):
 
 
 def test_halStats_copy_equals_original(stats_halz, capsys):
-    """The port's halStats prints the original's bytes in every mode the
-    port has; the three modes whose modules are not in the port raise."""
+    """The port's halStats prints the original's bytes in every mode;
+    --percentID here, and with --coverage and --allCoverage as CLIs in
+    test_halStats_cli_copy_equals_original."""
     from hal_tpu.tools import halStats as jax_stats
-    from hal_tpu_torch.tools import HalError
     from hal_tpu_torch.tools import halStats as port_stats
 
     aln = jax_open(stats_halz)
@@ -448,17 +451,71 @@ def test_halStats_copy_equals_original(stats_halz, capsys):
                   ["--branchLength", leaf], ["--numSegments", leaf],
                   ["--baseComp", "%s,3" % leaf], ["--metaData"],
                   ["--chromSizes", leaf], ["--topSegments", leaf],
-                  ["--bottomSegments", root]):
+                  ["--bottomSegments", root], ["--percentID", leaf],
+                  ["--percentID", root]):
         capsys.readouterr()
         jax_stats.run([stats_halz] + flags)
         want = capsys.readouterr().out
         port_stats.run([stats_halz] + flags)
         assert capsys.readouterr().out == want, flags
         assert want or flags == ["--metaData"], flags
-    for flags in (["--coverage", leaf], ["--percentID", leaf],
-                  ["--allCoverage"]):
-        with pytest.raises(HalError, match="not in the port"):
-            port_stats.run([stats_halz] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--percentID", 0], ["--coverage", 0],
+                                   ["--allCoverage"]])
+def test_halStats_cli_copy_equals_original(stats_halz, flags):
+    """python -m hal_tpu_torch.tools.halStats prints the bytes of python -m
+    hal_tpu.tools.halStats for the three modes that run the copied
+    halPctId and halCoverage; both run as __main__ with the clock held
+    fixed (--coverage seeds its sampler from it)."""
+    import subprocess
+    import sys
+
+    aln = jax_open(stats_halz)
+    leaf = [n for n in aln.genome_names() if aln.tree.is_leaf(n)][0]
+    argv = [stats_halz] + [leaf if a == 0 else a for a in flags]
+    out = {}
+    for pkg in ("hal_tpu", "hal_tpu_torch"):
+        code = ("import runpy, sys, time\n"
+                "time.time = lambda: 1_700_000_000.0\n"
+                "sys.argv = ['halStats'] + sys.argv[1:]\n"
+                "runpy.run_module(%r, run_name='__main__')\n"
+                % (pkg + ".tools.halStats"))
+        r = subprocess.run([sys.executable, "-c", code] + argv,
+                           capture_output=True, timeout=300, cwd=REPO)
+        assert r.returncode == 0, r.stderr.decode()[-2000:]
+        out[pkg] = r.stdout
+    assert out["hal_tpu"] and out["hal_tpu_torch"] == out["hal_tpu"]
+
+
+def test_halPctId_and_halCoverage_copies_equal_original(stats_halz):
+    """The copied halPctId and halCoverage modules print the original's
+    bytes: percent identity against every genome, coverage by genome and
+    by sequence at two seeds, and all-coverage."""
+    from hal_tpu.tools import halCoverage as jax_cov
+    from hal_tpu.tools import halPctId as jax_pct
+    from hal_tpu_torch.tools import halCoverage as port_cov
+    from hal_tpu_torch.tools import halPctId as port_pct
+
+    jaln = jax_open(stats_halz)
+    paln = open_alignment(stats_halz)
+
+    def text(fn, aln, *args, **kw):
+        buf = io.StringIO()
+        fn(buf, aln, *args, **kw)
+        return buf.getvalue()
+
+    for name in jaln.genome_names():
+        want = text(jax_pct.print_percent_id, jaln, name)
+        assert text(port_pct.print_percent_id, paln, name) == want, name
+    leaf = [n for n in jaln.genome_names() if jaln.tree.is_leaf(n)][0]
+    for seed, by_seq in ((0, False), (5, True)):
+        want = text(jax_cov.print_coverage, jaln, leaf, 2000, seed, by_seq)
+        assert want
+        assert text(port_cov.print_coverage, paln, leaf, 2000, seed,
+                    by_seq) == want, (seed, by_seq)
+    want = text(jax_cov.print_all_coverage, jaln, 3000, 2)
+    assert want and text(port_cov.print_all_coverage, paln, 3000, 2) == want
 
 
 def test_parallel_mp_copy_equals_original(stats_halz):

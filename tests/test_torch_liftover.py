@@ -298,9 +298,10 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
-    phyloP fit, their CLIs and host copies included — imports without jax or any module of
-    the JAX package (hal_tpu, hal_tpu.*) entering the process: the port
-    keeps its own copies of the host code it needs."""
+    phyloP fit, the sharded steps, their CLIs and host copies included —
+    imports without jax or any module of the JAX package (hal_tpu,
+    hal_tpu.*) entering the process: the port keeps its own copies of the
+    host code it needs."""
     code = ("import sys, pkgutil, importlib, hal_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "hal_tpu_torch.__path__, 'hal_tpu_torch.')]\n"
@@ -312,7 +313,9 @@ def test_port_imports_no_jax():
             "tools.hal2maf tools.halAlignmentDepth "
             "tools.halWiggleLiftover phylop phylop_torch ops.phylop_fit "
             "parallel.mp tools.halStats tools.halPhyloP tools.halPhyloPMP "
-            "tools.halTreePhyloP').split()}\n"
+            "tools.halTreePhyloP tools.halPctId tools.halCoverage "
+            "parallel.mesh parallel.sharded parallel.ring_sharded "
+            "parallel.distributed graft_entry tools.benchScaling').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
