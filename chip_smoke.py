@@ -56,6 +56,17 @@ printing its seconds:
      same window byte-equal to it too, then six windows timed (device phase
      and end to end), and the hal2maf CLI on a smaller DNA alignment,
      --device cuda bytes equal to --device cpu.
+  6b. remote alignments: the directory of phases 4-6 served over HTTP with
+     byte ranges by a process this script starts (HAL_TPU_UDC_DIR under
+     it), and the halLiftover, halAlignmentDepth and hal2maf runs of
+     phases 4-6 repeated on --device cuda with the URL in place of the
+     path, each with a fresh block cache: the bytes equal to the local
+     run's, with seconds, HTTP requests and bytes fetched beside the
+     local run's seconds and the halz's bytes; one 25 bp interval mapped
+     by the host map_source over the URL fetches under 5% of the remote
+     arrays' bytes; then hal_tpu_torch.tools.benchOverlap --device cuda
+     twice in a subprocess (its defaults, and the liftover's shape: a
+     6.8 MB wire, 2048^2 matmuls x 8), each checking its drained wires.
   7. the phyloP fit: phylop_lnl against lnl_plain in float64 (max
      relative error 1e-5; the float32 plain version's own error printed
      beside it), both launch shapes of phylop_fit bit-identical at 2^14
@@ -69,11 +80,11 @@ printing its seconds:
      path's shape (its model, one window's new patterns), and the halPhyloP
      CLI on 2^18 columns of phase 6's CLI alignment, --device cuda against
      --device cpu.
-Phases 4-7 each drive a path with the launch counts set to 0 just before
-and read just after; the three Pallas kernels' ports must launch on every
-path (on the "sharded" path, on each step's first call: the four steps of
-phase 5b and the sharded column step of phase 6), and phylop_fit on the
-phyloP path.
+Phases 4-7 (6b included) each drive a path with the launch counts set to
+0 just before and read just after; the three Pallas kernels' ports must
+launch on every path (on the "sharded" path, on each step's first call:
+the four steps of phase 5b and the sharded column step of phase 6), and
+phylop_fit on the phyloP path.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -84,6 +95,7 @@ power limit, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -814,7 +826,9 @@ def cli_fixture(tmp: str):
     return hal, src, tgt, bed
 
 
-def phase_main_path(dev, bench, tmp, cli) -> dict:
+def phase_main_path(dev, bench, tmp, cli, runs) -> dict:
+    """The liftover main path; records its CLI run in runs (the remote
+    phase repeats it on a URL)."""
     import torch
 
     from hal_tpu_torch.ops import kernels as K
@@ -823,6 +837,10 @@ def phase_main_path(dev, bench, tmp, cli) -> dict:
 
     hal, src2, tgt2, bed = cli
     out_port = os.path.join(tmp, "port.bed")
+
+    def argv(h, out):
+        return [h, src2, bed, tgt2, out, "--batchSize", str(CLI_BATCH)]
+
     aln = bench["aln"]
 
     K.reset_launches()
@@ -834,8 +852,7 @@ def phase_main_path(dev, bench, tmp, cli) -> dict:
     t_bulk = time.perf_counter() - t0
     bulk_counts = K.launches()
     t0 = time.perf_counter()
-    port_cli.run([hal, src2, bed, tgt2, out_port, "--batchSize",
-                  str(CLI_BATCH), "--device", "cuda"])
+    port_cli.run(argv(hal, out_port) + ["--device", "cuda"])
     torch.cuda.synchronize()
     t_cli = time.perf_counter() - t0
     counts = K.launches()
@@ -863,8 +880,7 @@ def phase_main_path(dev, bench, tmp, cli) -> dict:
     # versions; the CPU tests hold that run byte-equal to hal_tpu's CLI)
     out_cpu = os.path.join(tmp, "cpu.bed")
     t0 = time.perf_counter()
-    port_cli.run([hal, src2, bed, tgt2, out_cpu, "--batchSize",
-                  str(CLI_BATCH), "--device", "cpu"])
+    port_cli.run(argv(hal, out_cpu) + ["--device", "cpu"])
     t_cpu = time.perf_counter() - t0
     if K.launches() != counts:
         raise AssertionError("the --device cpu run launched a kernel")
@@ -877,6 +893,8 @@ def phase_main_path(dev, bench, tmp, cli) -> dict:
     log("  halLiftover %s -> %s: %d lines in, %d bytes out, byte-equal to "
         "the same CLI on --device cpu (%.1fs)"
         % (src2, tgt2, CLI_LINES, len(a), t_cpu))
+    runs["halLiftover"] = dict(run=port_cli.run, argv=argv, hal=hal,
+                               out=out_port, seconds=t_cli)
     return counts
 
 
@@ -975,10 +993,11 @@ def wiggle_fixture(aln, genome: str, path: str) -> int:
     return n + 20000
 
 
-def phase_depth(dev, bench, tmp, cli) -> dict:
-    """The alignment-depth engine at bench scale, then its CLIs.  Returns
-    the kernels' launches on one depth window (the unique-count run_runs
-    drain of the 2^27-column window)."""
+def phase_depth(dev, bench, tmp, cli, runs) -> dict:
+    """The alignment-depth engine at bench scale, then its CLIs (the
+    halAlignmentDepth run recorded in runs).  Returns the kernels' launches
+    on one depth window (the unique-count run_runs drain of the
+    2^27-column window)."""
     import torch
 
     from hal_tpu_torch.ops import depth
@@ -1070,12 +1089,18 @@ def phase_depth(dev, bench, tmp, cli) -> dict:
     from hal_tpu_torch.tools import halAlignmentDepth, halWiggleLiftover
 
     hal, src2, tgt2, _bed = cli
+
+    def depth_argv(h, out):
+        return [h, src2, "--outWiggle", out, "--length",
+                str(DEPTH_CLI_COLUMNS)]
+
+    out = os.path.join(tmp, "depth_cuda.wig")
     n, t_cuda, t_cpu, c = cli_bytes_equal(
-        halAlignmentDepth.run,
-        lambda out: [hal, src2, "--outWiggle", out, "--length",
-                     str(DEPTH_CLI_COLUMNS)],
-        os.path.join(tmp, "depth_cuda.wig"),
+        halAlignmentDepth.run, lambda o: depth_argv(hal, o), out,
         os.path.join(tmp, "depth_cpu.wig"), "halAlignmentDepth")
+    runs["halAlignmentDepth"] = dict(run=halAlignmentDepth.run,
+                                     argv=depth_argv, hal=hal, out=out,
+                                     seconds=t_cuda)
     log("  halAlignmentDepth %s (%d columns): %d bytes, --device cuda %.1fs "
         "equal to --device cpu %.1fs; launches %s"
         % (src2, DEPTH_CLI_COLUMNS, n, t_cuda, t_cpu, c))
@@ -1388,12 +1413,13 @@ def sharded_column_window(dev, group, aln, ref, eng, want: bytes, W: int):
                              counts)
 
 
-def phase_maf(dev, tmp, group) -> tuple:
+def phase_maf(dev, tmp, group, runs) -> tuple:
     """The device column engine at bench scale through the native
     assembler (and the sharded column step on the first window), then the
-    hal2maf CLI.  Returns the kernels' launches on the first MAF window,
-    the sharded column step's launches and times, and (the MAF fixture,
-    its reference, the CLI's halz, its reference) for phase 7."""
+    hal2maf CLI (recorded in runs).  Returns the kernels' launches on the
+    first MAF window, the sharded column step's launches and times, and
+    (the MAF fixture, its reference, the CLI's halz, its reference) for
+    phase 7."""
     import torch
 
     from hal_tpu_torch.ops import kernels as K
@@ -1528,16 +1554,220 @@ def phase_maf(dev, tmp, group) -> tuple:
     hal = os.path.join(tmp, "maf.halz")
     save_alignment(small, hal, fmt="halz")
     ref2 = [n for n in small.genome_names() if small.tree.is_leaf(n)][0]
+
+    def maf_argv(h, out):
+        return [h, out, "--refGenome", ref2]
+
+    out = os.path.join(tmp, "cuda.maf")
     n, t_cuda, t_cpu, c = cli_bytes_equal(
-        hal2maf.run, lambda out: [hal, out, "--refGenome", ref2],
-        os.path.join(tmp, "cuda.maf"), os.path.join(tmp, "cpu.maf"),
-        "hal2maf")
+        hal2maf.run, lambda o: maf_argv(hal, o), out,
+        os.path.join(tmp, "cpu.maf"), "hal2maf")
+    runs["hal2maf"] = dict(run=hal2maf.run, argv=maf_argv, hal=hal, out=out,
+                           seconds=t_cuda)
     log("  hal2maf --refGenome %s (%.1f Mb, %d genomes): %d bytes, --device "
         "cuda %.1fs equal to --device cpu %.1fs; launches %s"
         % (ref2, small.open_genome(ref2).length / 1e6, small.num_genomes, n,
            t_cuda, t_cpu, c))
     log("phase 6 passed in %.1fs" % (time.perf_counter() - t_phase))
     return launches, sharded, (aln, ref, hal, ref2)
+
+
+def serve_directory(directory: str, conn, counts) -> None:
+    """The remote phase's HTTP server, run in a process of its own (a
+    thread of this process would contend with the client for the GIL):
+    GET with byte ranges, answered 206 with Content-Range as hub servers
+    do (http.server's SimpleHTTPRequestHandler ignores Range, and
+    BlockFile would take whole bodies), each answer counted in counts
+    (shared int64s: requests, body bytes)."""
+    import http.server
+    import urllib.parse
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_GET(self):
+            rel = urllib.parse.unquote(urllib.parse.urlsplit(self.path).path)
+            parts = [p for p in rel.split("/") if p not in ("", ".", "..")]
+            try:
+                f = open(os.path.join(directory, *parts), "rb")
+            except OSError:
+                self.send_error(404)
+                return
+            with f:
+                size = os.fstat(f.fileno()).st_size
+                rng = self.headers.get("Range", "")
+                if rng.startswith("bytes="):
+                    a, b = rng[6:].split("-")
+                    a = int(a)
+                    b = min(int(b), size - 1) if b else size - 1
+                    f.seek(a)
+                    body = f.read(max(b - a + 1, 0))
+                    self.send_response(206)
+                    self.send_header("Content-Range",
+                                     "bytes %d-%d/%d" % (a, b, size))
+                else:
+                    body = f.read()
+                    self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+            with counts.get_lock():
+                counts[0] += 1
+                counts[1] += len(body)
+
+    srv = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+    conn.send(srv.server_address[1])
+    conn.close()
+    srv.serve_forever()
+
+
+@contextlib.contextmanager
+def served(directory: str):
+    """directory served over HTTP by serve_directory in a spawned process
+    on 127.0.0.1; yields (base URL, counts).  The process is stopped on
+    exit."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    counts = ctx.Array("q", 2)
+    reader, writer = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=serve_directory, args=(directory, writer, counts),
+                       daemon=True)
+    proc.start()
+    try:
+        if not reader.poll(120):
+            raise AssertionError("the HTTP server did not start")
+        yield "http://127.0.0.1:%d" % reader.recv(), counts
+    finally:
+        proc.terminate()
+        proc.join(30)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        reader.close()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, files in os.walk(path) for f in files)
+
+
+def remote_laziness(base: str, cli) -> str:
+    """One 25 bp interval mapped by the host map_source over the URL of
+    the CLI alignment equals the local map and fetches under 5% of the
+    remote arrays' bytes (tests/test_remote.py's block-granular check)."""
+    from hal_tpu_torch.ops import segmap_host
+    from hal_tpu_torch.storage import open_alignment
+    from hal_tpu_torch.storage.remote import RemoteArray
+
+    hal, src, tgt, _bed = cli
+    RemoteArray._bf_cache.clear()
+    remote = open_alignment(base + "/" + os.path.basename(hal))
+    g = remote.open_genome(src)
+    lo = np.array([g.length // 3], np.int64)
+    hi = lo + 25
+    got = segmap_host.map_source(remote, src, lo, hi, tgt, do_dupes=True)
+    want = segmap_host.map_source(open_alignment(hal), src, lo, hi, tgt,
+                                  do_dupes=True)
+    for f in ("src_lo", "src_hi", "tgt_lo", "tgt_hi", "rev"):
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError("remote map_source differs from the local "
+                                 "map in %s" % f)
+    ras = remote.remote_arrays
+    total = sum(ra.nbytes for (_n, _a, ra) in ras)
+    bfs = {id(ra.bf): ra.bf for (_n, _a, ra) in ras}.values()
+    fetched = sum(bf.bytes_fetched for bf in bfs)
+    if not ras or fetched >= total / 20:
+        raise AssertionError("one interval over the URL fetched %d of %d "
+                             "remote array bytes" % (fetched, total))
+    return ("one %d bp interval %s -> %s (%d fragments) by the host "
+            "map_source over the URL: %d of %d remote array bytes fetched "
+            "(%.2f%%) in %d requests, over %d arrays"
+            % (int(hi[0] - lo[0]), src, tgt, len(got.tgt_lo), fetched, total,
+               100.0 * fetched / total, sum(bf.requests for bf in bfs),
+               len(ras)))
+
+
+def bench_overlap(args) -> None:
+    """python -m hal_tpu_torch.tools.benchOverlap --device cuda in a
+    subprocess: it must exit 0, check every schedule's first wire and
+    print its JSON line last."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "hal_tpu_torch.tools.benchOverlap", "--device",
+                        "cuda"] + args, cwd=REPO, capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError("benchOverlap %s exited %d: %s"
+                             % (args, r.returncode, r.stderr[-3000:]))
+    if "wires checked" not in r.stderr:
+        raise AssertionError("benchOverlap %s did not check its wires" % args)
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    log("  benchOverlap %s (%.1fs):" % (" ".join(args) or "(defaults)",
+                                        time.perf_counter() - t0))
+    for line in r.stderr.strip().splitlines():
+        log("    " + line)
+    log("    " + json.dumps(rec))
+
+
+def phase_remote(tmp, cli, runs) -> dict:
+    """The CLIs of phases 4-6 on --device cuda over HTTP: tmp served by a
+    process of this script's own, HAL_TPU_UDC_DIR under tmp, each CLI's
+    block cache fresh (as in a new process) and its output byte-equal to
+    the local run's; the laziness check; then benchOverlap twice.  Returns
+    the kernels' launches over the three CLIs."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.storage.remote import RemoteArray
+
+    t_phase = time.perf_counter()
+    old_udc = os.environ.get("HAL_TPU_UDC_DIR")
+    os.environ["HAL_TPU_UDC_DIR"] = os.path.join(tmp, "udc")
+    try:
+        with served(tmp) as (base, served_counts):
+            log("phase 6b remote: %s served by a separate process "
+                "(HTTP Range)" % base)
+            K.reset_launches()
+            for tool, rec in runs.items():
+                hal = rec["hal"]
+                url = base + "/" + os.path.basename(hal)
+                out = os.path.join(tmp, "remote_" + os.path.basename(
+                    rec["out"]))
+                RemoteArray._bf_cache.clear()
+                n0, b0 = served_counts[:]
+                t0 = time.perf_counter()
+                rec["run"](rec["argv"](url, out) + ["--device", "cuda"])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                n1, b1 = served_counts[:]
+                a = open(out, "rb").read()
+                b = open(rec["out"], "rb").read()
+                if not a or a != b:
+                    raise AssertionError(
+                        "%s --device cuda on %s differs from the local run "
+                        "(%d vs %d bytes)" % (tool, url, len(a), len(b)))
+                size = dir_bytes(hal)
+                log("  %s --device cuda on %s: %d bytes, byte-equal to the "
+                    "local run; %.1fs on the URL against %.1fs local; %d HTTP "
+                    "requests, %d bytes fetched of the halz's %d (%.1f%%)"
+                    % (tool, url, len(a), dt, rec["seconds"], n1 - n0,
+                       b1 - b0, size, 100.0 * (b1 - b0) / size))
+            counts = K.launches()
+            check_launched(counts, "remote")
+            log("  launches over the three CLIs %s" % counts)
+            log("  " + remote_laziness(base, cli))
+    finally:
+        RemoteArray._bf_cache.clear()
+        if old_udc is None:
+            os.environ.pop("HAL_TPU_UDC_DIR", None)
+        else:
+            os.environ["HAL_TPU_UDC_DIR"] = old_udc
+    bench_overlap([])
+    bench_overlap(["--mb", "6.8", "--matmul", "2048", "--chains", "8"])
+    log("phase 6b passed in %.1fs" % (time.perf_counter() - t_phase))
+    return counts
 
 
 def seeded_model(n_leaves: int, seed: int):
@@ -2108,16 +2338,18 @@ def main() -> int:
             "localhost:%d" % free_port(), 1, 0, device=dev) as group:
         t0 = time.perf_counter()
         cli = cli_fixture(tmp)
-        counts = phase_main_path(dev, bench, tmp, cli)
+        runs = {}  # each local CLI run, repeated on a URL in phase 6b
+        counts = phase_main_path(dev, bench, tmp, cli, runs)
         log("phase 4 passed in %.1fs" % (time.perf_counter() - t0))
         paths = {"liftover": counts,
-                 "depth": phase_depth(dev, bench, tmp, cli)}
+                 "depth": phase_depth(dev, bench, tmp, cli, runs)}
         paths["sharded"], sharded_ms = phase_sharded(dev, bench, group)
         del bench
         paths["maf"], (col_counts, sharded_ms["column"]), maf = phase_maf(
-            dev, tmp, group)
+            dev, tmp, group, runs)
         for k, c in col_counts.items():
             paths["sharded"][k] += c
+        paths["remote"] = phase_remote(tmp, cli, runs)
         rec["phylop_fit"], paths["phylop"] = phase_phylop(dev, maf, tmp)
         del maf
     for name in PALLAS_PORTS:

@@ -788,7 +788,8 @@ def target_seq_grid(genome, *, device) -> torch.Tensor:
     """Inner sequence bounds of a target genome (int64 in uint32 range) for
     runs_packed's never-span-sequences check; single-sequence genomes get
     one unreachable sentinel."""
-    inner = np.asarray(genome.seq_start[1:-1], np.int64)
+    # a copy: genome arrays are read-only (memory maps, remote buffers)
+    inner = np.array(genome.seq_start[1:-1], np.int64)
     if inner.size == 0:
         inner = np.array([_U32], np.int64)
     return torch.from_numpy(inner).to(device)

@@ -66,7 +66,7 @@ def shard_global_batch(mesh: Mesh, arrays):
     as tensors on mesh.device."""
     out = []
     for a in arrays:
-        a = np.ascontiguousarray(a)
+        a = np.array(a)  # a copy: the caller's array may be read-only
         if len(a) % len(mesh.local_data):
             raise ValueError("%d rows do not divide over %d local data "
                              "shards" % (len(a), len(mesh.local_data)))
@@ -100,7 +100,7 @@ def merge_sorted_blocks(local_blocks: np.ndarray, *, device,
     process's row count, then its rows (padded to the largest count), then
     one k-way merge on the host.  Every process gets the same sorted array.
     group None: this process's blocks alone."""
-    local_blocks = np.ascontiguousarray(local_blocks)
+    local_blocks = np.array(local_blocks)  # a copy: torch gets writable memory
     chunks = [local_blocks]
     if group is not None:
         n_proc = dist.get_world_size(group)

@@ -181,5 +181,5 @@ def shard_batch(mesh: Mesh, lo: np.ndarray, hi: np.ndarray, owner: np.ndarray):
         owner = np.concatenate([owner, np.full(pad, -1, owner.dtype)])
     per = len(lo) // n_data
     rows = slice(mesh.local_data.start * per, mesh.local_data.stop * per)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).to(mesh.device)
+    return tuple(torch.from_numpy(np.array(a[rows])).to(mesh.device)
                  for a in (lo, hi, owner))

@@ -21,6 +21,7 @@ import os
 
 from hal_tpu_torch.alignment import Alignment
 from hal_tpu_torch.constants import FORMAT_HDF5, FORMAT_HALZ, FORMAT_MMAP
+from hal_tpu_torch.storage.remote import is_url, open_remote
 
 
 def detect_format(path: str) -> str:
@@ -44,17 +45,12 @@ def detect_format(path: str) -> str:
     raise ValueError("cannot detect alignment format of %s" % path)
 
 
-def is_url(path: str) -> bool:
-    """halCommon.h:172 isUrl equivalent (hal_tpu/storage/remote.py)."""
-    return path.startswith("http://") or path.startswith("https://")
-
-
 def open_alignment(path: str, mode: str = "r") -> Alignment:
     if is_url(path):
-        # hal_tpu/storage/remote.py (UDC-equivalent remote access) is not
-        # ported yet
-        raise ValueError("remote alignments (%s) are not supported by "
-                         "hal_tpu_torch yet: open a local copy" % path)
+        # UDC-equivalent remote read-only access (reference README.md:126-131)
+        if mode != "r":
+            raise ValueError("remote alignments are read-only")
+        return open_remote(path)
     fmt = detect_format(path)
     if fmt == FORMAT_MMAP:
         from hal_tpu_torch.storage import mmap_driver

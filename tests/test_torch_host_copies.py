@@ -71,8 +71,10 @@ def test_storage_equals_original(tmp_path, fmt, name):
         assert type(got).__module__ == "hal_tpu_torch.alignment"
         _assert_same_alignment(got, jax_open(path))
         _assert_same_alignment(got, aln)
-    with pytest.raises(ValueError, match="not supported"):
-        open_alignment("https://example.invalid/aln.hal")
+    # URLs open through storage.remote (tests/test_torch_remote.py); a
+    # write mode is refused before any request is made
+    with pytest.raises(ValueError, match="read-only"):
+        open_alignment("https://example.invalid/aln.hal", mode="w")
 
 
 def _pairs(aln):

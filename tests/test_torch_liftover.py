@@ -298,7 +298,8 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
-    phyloP fit, the sharded steps, their CLIs and host copies included —
+    phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap
+    and host copies included —
     imports without jax or any module of the JAX package (hal_tpu,
     hal_tpu.*) entering the process: the port keeps its own copies of the
     host code it needs."""
@@ -315,7 +316,8 @@ def test_port_imports_no_jax():
             "parallel.mp tools.halStats tools.halPhyloP tools.halPhyloPMP "
             "tools.halTreePhyloP tools.halPctId tools.halCoverage "
             "parallel.mesh parallel.sharded parallel.ring_sharded "
-            "parallel.distributed graft_entry tools.benchScaling').split()}\n"
+            "parallel.distributed graft_entry tools.benchScaling "
+            "storage.remote tools.benchOverlap').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
@@ -336,8 +338,8 @@ def _names_hal_tpu(text: str) -> bool:
 def test_chip_smoke_imports_and_runs_no_hal_tpu():
     """chip_smoke.py neither imports hal_tpu nor jax, nor names hal_tpu in
     the arguments of any subprocess it starts (read with ast); it imports
-    the port's depth and column engines, the phyloP CLI and the other
-    CLIs."""
+    the port's depth and column engines, remote storage, the phyloP CLI
+    and the other CLIs, and runs the port's benchOverlap."""
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = []
     for node in ast.walk(tree):
@@ -346,9 +348,11 @@ def test_chip_smoke_imports_and_runs_no_hal_tpu():
         elif isinstance(node, ast.ImportFrom):
             imported.append(node.module or "")
     assert "torch" in imported and "hal_tpu_torch.ops" in imported
-    # phases 5-6 drive the depth and column engines and their CLIs
+    # phases 5-6 drive the depth and column engines and their CLIs, phase
+    # 6b the CLIs on remote alignments and benchOverlap
     for mod in ("hal_tpu_torch.ops.column_torch",
-                "hal_tpu_torch.ops.column_native", "hal_tpu_torch.tools"):
+                "hal_tpu_torch.ops.column_native", "hal_tpu_torch.tools",
+                "hal_tpu_torch.storage.remote"):
         assert mod in imported, mod
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
              for a in n.names}
@@ -361,6 +365,9 @@ def test_chip_smoke_imports_and_runs_no_hal_tpu():
              and isinstance(n.func.value, ast.Name)
              and n.func.value.id == "subprocess"]
     assert calls
+    assert "hal_tpu_torch.tools.benchOverlap" in {
+        c.value for call in calls for c in ast.walk(call)
+        if isinstance(c, ast.Constant)}
     for call in calls:
         for arg in list(call.args) + [k.value for k in call.keywords]:
             for c in ast.walk(arg):
