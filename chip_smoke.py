@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (hal_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --hub-only [--hub-segments N]   # phases 1 and 8
 
 Phases (any failure raises and exits non-zero; nothing is caught), each
 printing its seconds:
@@ -80,11 +81,30 @@ printing its seconds:
      path's shape (its model, one window's new patterns), and the halPhyloP
      CLI on 2^18 columns of phase 6's CLI alignment, --device cuda against
      --device cpu.
-Phases 4-7 (6b included) each drive a path with the launch counts set to
+  8. the assembly hub: hal2assemblyHub --lod --gcContent --rmsk
+     --alignability --numProc 4 on --device cuda over every leaf of a DNA
+     alignment (bench.py's MAF fixture shape, seed 13, HUB_SEGMENTS
+     segments a genome), and on --device cpu over one leaf: that leaf's
+     FASTA, chrom.sizes, GC, repeat-mask and alignability wiggles and
+     bigWig/bigBed files, hub.txt, groups.txt, lod.txt and every LOD file
+     byte-equal, its trackDb.txt equal up to the hubs' genome lists; the
+     conservation hub (--genomes, --conservation) of phase 6's CLI
+     alignment under phase 7's model against halPhyloP --device cpu
+     (headers equal, the first 2^16 values of each sequence within the
+     float32 tolerance); halLodBenchmark --steps 2,4 --doMaf --format halz,
+     cuda against cpu (MAF line counts equal); hal2mafMP --sliceSize 2^20
+     --numProc 4, cuda against cpu (bytes equal), a host path (each slice
+     runs hal2maf --unique, outside the device engine).  The jobs run in
+     subprocesses, each appending its argv, seconds and launches to the
+     port's HAL_TPU_TORCH_LAUNCH_LOG; each job's seconds are printed.
+Phases 4-8 (6b included) each drive a path with the launch counts set to
 0 just before and read just after; the three Pallas kernels' ports must
 launch on every path (on the "sharded" path, on each step's first call:
-the four steps of phase 5b and the sharded column step of phase 6), and
-phylop_fit on the phyloP path.
+the four steps of phase 5b and the sharded column step of phase 6; on the
+"hub" path in every card job: each alignability job, the conservation
+job and halLodBenchmark's hal2maf runs, whose counts start at 0 in their
+own processes), phylop_fit on the phyloP path and in the conservation
+job, and no kernel in a --device cpu job.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -101,6 +121,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -133,6 +154,16 @@ PHYLOP_SMALL_PATTERNS = 1 << 14
 PHYLOP_WINDOW = 1 << 20      # halPhyloP's WINDOW
 PHYLOP_CPU_COLUMNS = 1 << 16
 PHYLOP_CLI_COLUMNS = 1 << 18
+# phase 8: the assembly hub's DNA alignment (bench.py's MAF fixture shape),
+# cut from 2^18 segments a genome to 2^10 to fit the phase in ~150 s: the
+# hub's serial Python track writing grows ~21 s on the card's host per
+# 2^10 segments (PERF.md section 4, "reduced")
+HUB_SEGMENTS = 1 << 10
+HUB_SEED = 13
+HUB_PROCS = 4                # the hub's --numProc, hal2mafMP's too
+HUB_LOD_STEPS = "2,4"        # halLodBenchmark --steps
+HUB_PHYLOP_CPU_COLUMNS = 1 << 16
+MAFMP_SLICE = 1 << 20        # hal2mafMP --sliceSize
 # The subtree fit's 4 alternating rounds stop short of convergence on a
 # ridge of (scale, subtree scale), so its float32 result depends on
 # rounding: the JAX package's float32 program and the port's plain float32
@@ -2172,6 +2203,19 @@ def time_path_fit(dev, scorer, npat: int) -> None:
            100 * bound / min(ts)))
 
 
+def wig_scores_agree(va, vb, what: str) -> float:
+    """phyloP wiggle values of the card (va) and of --device cpu (vb),
+    printed at --prec 3, within the float32 tolerance plus one rounding
+    step: |d| < 2e-2 + 1e-3, signs flipping only where the cpu score is
+    under 0.05.  Returns the largest |d|."""
+    d = np.abs(va - vb)
+    flip = np.sign(va) != np.sign(vb)
+    if (d[~flip] >= 2e-2 + 1e-3).any() or np.abs(vb[flip]).max(initial=0) >= 0.05:
+        raise AssertionError("%s scores disagree (max |d| %.3g)"
+                             % (what, d.max()))
+    return float(d.max(initial=0))
+
+
 def phase_phylop(dev, maf, tmp) -> tuple:
     """The phyloP path: the kernel checks, then PhyloPScorer on the card
     over two 2^20-column windows of the MAF fixture against the same scorer
@@ -2296,23 +2340,406 @@ def phase_phylop(dev, maf, tmp) -> tuple:
                              "differ")
     va = np.array([float(x) for x in a if not x.startswith("fixedStep")])
     vb = np.array([float(x) for x in b if not x.startswith("fixedStep")])
-    # printed at --prec 3: the float32 tolerance plus one rounding step
-    d = np.abs(va - vb)
-    flip = np.sign(va) != np.sign(vb)
-    if (d[~flip] >= 2e-2 + 1e-3).any() or np.abs(vb[flip]).max(initial=0) >= 0.05:
-        raise AssertionError("halPhyloP cuda/cpu scores disagree (max |d| "
-                             "%.3g)" % d.max())
+    d = wig_scores_agree(va, vb, "halPhyloP cuda/cpu")
     log("  halPhyloP %s %s (%d columns): headers byte-equal, scores within "
         "the float32 tolerance of --device cpu (max |d| %.3f, %d lines "
         "differ); cuda %.1fs, cpu %.1fs; launches %s"
-        % (small_ref, g.seq_names[si], length, float(d.max(initial=0)),
+        % (small_ref, g.seq_names[si], length, d,
            int((va != vb).sum()), outs["cuda"][1], outs["cpu"][1],
            outs["cuda"][2]))
     log("phase 7 passed in %.1fs" % (time.perf_counter() - t_phase))
     return rec, launches
 
 
-def main() -> int:
+@contextlib.contextmanager
+def port_tools(directory: str):
+    """Yields start(tool, args, name): python -m hal_tpu_torch.tools.<tool>
+    args as a subprocess of its own session, from the repository, its
+    output in directory/<name>.out and .err, each process it starts
+    appending to the launch log directory/<name>.jsonl.  start returns a
+    callable that waits for the tool and returns (seconds, stdout, the
+    launch log's path); a non-zero exit raises.  On leaving, every tool
+    still running is killed with its process group."""
+    from hal_tpu_torch import LAUNCH_LOG_ENV
+
+    procs = []
+
+    def start(tool: str, args, name: str):
+        env = dict(os.environ, PYTHONPATH=REPO)
+        env[LAUNCH_LOG_ENV] = os.path.join(directory, name + ".jsonl")
+        out = os.path.join(directory, name + ".out")
+        err = os.path.join(directory, name + ".err")
+        with open(out, "w") as fo, open(err, "w") as fe:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "hal_tpu_torch.tools." + tool]
+                + [str(a) for a in args], cwd=REPO, env=env, stdout=fo,
+                stderr=fe, start_new_session=True)
+        procs.append(proc)
+        ended = []  # the exit's time, taken by a thread as it happens
+        waiter = threading.Thread(target=lambda: ended.append(
+            (proc.wait(), time.perf_counter())), daemon=True)
+        waiter.start()
+
+        def wait():
+            waiter.join()
+            rc, t1 = ended[0]
+            sec = t1 - t0
+            if rc:
+                raise AssertionError("%s (%s) exited with %d:\n%s"
+                                     % (tool, name, rc, open(err).read()[-4000:]))
+            return sec, open(out).read(), env[LAUNCH_LOG_ENV]
+
+        return wait
+
+    try:
+        yield start
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+
+
+def launch_log(path: str) -> list:
+    """The processes of a HAL_TPU_TORCH_LAUNCH_LOG: (tool, its arguments,
+    seconds, start, end, launches or None where it never imported the
+    kernels' module), in the order they ended."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            x = json.loads(line)
+            out.append((os.path.basename(x["argv"][0])[:-3], x["argv"][1:],
+                        x["end"] - x["start"], x["start"], x["end"],
+                        x["launches"]))
+    return out
+
+
+def log_jobs(jobs: list) -> None:
+    """Print every process of a launch log, one line a tool: each process's
+    arguments (paths left out), seconds and nonzero launches ("-" where it
+    never imported the kernels' module)."""
+    by_tool = {}
+    for tool, args, sec, _a, _b, counts in jobs:
+        shown = " ".join(a for a in args if not a.startswith("/"))
+        by_tool.setdefault(tool, []).append(
+            "[%s] %.2fs %s" % (shown, sec, "-" if counts is None else
+                               {k: v for k, v in counts.items() if v}))
+    for tool, runs in by_tool.items():
+        log("    job %s: %s" % (tool, "; ".join(runs)))
+
+
+def card_jobs(jobs: list, tool: str, names, what: str) -> dict:
+    """The launches of every `tool` process of a --device cuda run, each of
+    which must have launched every kernel of names; returns their sum."""
+    total = {}
+    found = [j for j in jobs if j[0] == tool]
+    if not found:
+        raise AssertionError("%s: no %s process in the launch log"
+                             % (what, tool))
+    for _tool, args, _s, _a, _b, counts in found:
+        if counts is None:
+            raise AssertionError("%s: %s %s never imported the kernels"
+                                 % (what, tool, args))
+        check_launched(counts, "%s (%s %s)" % (what, tool, " ".join(args[:2])),
+                       names)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def no_launches(jobs: list, what: str) -> None:
+    for tool, args, _s, _a, _b, counts in jobs:
+        if counts is not None and any(counts.values()):
+            raise AssertionError("%s: %s %s launched a kernel: %s"
+                                 % (what, tool, args, counts))
+
+
+def hub_stages(jobs: list) -> str:
+    """Stage A (the jobs, in parallel) and stage B (the hub's in-process
+    tracks and files after its last job) of one hal2assemblyHub run."""
+    hub = [j for j in jobs if j[0] == "hal2assemblyHub"]
+    work = [j for j in jobs if j[0] != "hal2assemblyHub"
+            and not (j[0] == "halStats" and "--sequences" in j[1])]
+    if len(hub) != 1 or not work:
+        raise AssertionError("launch log: %d hubs, %d jobs"
+                             % (len(hub), len(work)))
+    a0, a1 = min(j[3] for j in work), max(j[4] for j in work)
+    by_tool = {}
+    for j in work:
+        by_tool.setdefault(j[0], []).append(j[2])
+    return ("hub %.2fs: stage A %.2fs (%d jobs, %s), stage B %.2fs"
+            % (hub[0][2], a1 - a0, len(work),
+               ", ".join("%s %d x %.2f-%.2fs" % (t, len(v), min(v), max(v))
+                         for t, v in sorted(by_tool.items())),
+               hub[0][4] - a1))
+
+
+def trackdb_stanzas(text: str) -> list:
+    return [x for x in text.split("\n\n") if x.strip()]
+
+
+def phase_hub(tmp: str, small_hal: str, small_ref: str, small_mod: str,
+              segments: int = HUB_SEGMENTS) -> dict:
+    """The assembly-hub path: hal2assemblyHub on --device cuda over every
+    leaf of a DNA alignment of `segments` segments a genome, alone; then,
+    concurrently, the same hub on --device cpu restricted to one leaf, the
+    conservation hub of the 2 Mb CLI alignment with halPhyloP --device cpu
+    beside it, and halLodBenchmark --doMaf on each device; then hal2mafMP
+    on each device, concurrently.  The jobs run in subprocesses, whose
+    seconds and launches come from the port's launch log.  Returns the
+    kernels' launches summed over the path's card jobs."""
+    import io
+
+    from hal_tpu_torch import assemblyhub as ah
+    from hal_tpu_torch.io import bbi
+    from hal_tpu_torch.storage import open_alignment, save_alignment
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "hub")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    aln = build_maf_alignment(segments, seed=HUB_SEED)
+    hal = os.path.join(d, "aln.halz")
+    save_alignment(aln, hal, fmt="halz")
+    leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+    lens = [aln.open_genome(n).length for n in leaves]
+    leaf = leaves[0]
+    log("phase 8 assembly hub: %d genomes of %d segments (seed %d), %d "
+        "leaves of %.1f-%.1f Mb, in %.1fs"
+        % (aln.num_genomes, segments, HUB_SEED, len(leaves), min(lens) / 1e6,
+           max(lens) / 1e6, time.perf_counter() - t0))
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def read(root, *parts):
+        with open(os.path.join(root, *parts), "rb") as f:
+            return f.read()
+
+    flags = ["--lod", "--gcContent", "--rmsk", "--alignability", "--numProc",
+             HUB_PROCS]
+    small = open_alignment(small_hal).open_genome(small_ref)
+    seqs = [(small.seq_names[i], min(int(small.seq_length(i)),
+                                     HUB_PHYLOP_CPU_COLUMNS))
+            for i in range(small.num_sequences)]
+    with port_tools(d) as start:
+        # the alignability hub on the card over every leaf, alone
+        cuda_dir = os.path.join(d, "hub_cuda")
+        sec, _, lp = start("hal2assemblyHub", [hal, cuda_dir] + flags
+                           + ["--device", "cuda"], "hub_cuda")()
+        cuda_jobs = launch_log(lp)
+        log("  hal2assemblyHub --device cuda (all %d leaves, alone): %.1fs; "
+            "%s" % (len(leaves), sec, hub_stages(cuda_jobs)))
+        log_jobs(cuda_jobs)
+        add(card_jobs(cuda_jobs, "halAlignmentDepth", PALLAS_PORTS,
+                      "hub --alignability --device cuda"))
+        if len([j for j in cuda_jobs if j[0] == "halAlignmentDepth"]) != \
+                len(leaves):
+            raise AssertionError("hub: not one alignability job a leaf")
+
+        # concurrently: the references on the CPU, the conservation hub
+        # and halLodBenchmark on the card
+        cpu_dir = os.path.join(d, "hub_cpu")
+        cons_dir = os.path.join(d, "hub_cons")
+        waits = {
+            "hub_cpu": start("hal2assemblyHub", [hal, cpu_dir] + flags + [
+                "--genomes", leaf, "--device", "cpu"], "hub_cpu"),
+            "hub_cons": start("hal2assemblyHub", [
+                small_hal, cons_dir, "--genomes", small_ref, "--conservation",
+                small_mod, "--numProc", HUB_PROCS, "--device", "cuda"],
+                "hub_cons"),
+        }
+        for k, (chrom, n) in enumerate(seqs):
+            waits["phylop_cpu_%d" % k] = start("halPhyloP", [
+                small_hal, small_ref, small_mod,
+                os.path.join(d, "phylop_cpu_%d.wig" % k), "--refSequence",
+                chrom, "--length", n, "--device", "cpu"], "phylop_cpu_%d" % k)
+        for device in ("cuda", "cpu"):
+            waits["lodbench_" + device] = start("halLodBenchmark", [
+                hal, os.path.join(d, "lodbench_" + device), "--steps",
+                HUB_LOD_STEPS, "--doMaf", "--format", "halz", "--device",
+                device], "lodbench_" + device)
+        done = {k: w() for k, w in waits.items()}
+        concurrent = "concurrent with %d other runs" % (len(done) - 1)
+
+        # hal2mafMP on each device, concurrently
+        waits = {device: start("hal2mafMP", [
+            small_hal, os.path.join(d, "mafmp_%s.maf" % device),
+            "--sliceSize", MAFMP_SLICE, "--numProc", HUB_PROCS, "--device",
+            device], "mafmp_" + device) for device in ("cuda", "cpu")}
+        mafmp = {k: w() for k, w in waits.items()}
+
+    # the one-leaf hub on the CPU against the card's
+    sec, _, lp = done["hub_cpu"]
+    cpu_jobs = launch_log(lp)
+    log("  hal2assemblyHub --device cpu (--genomes %s, %s): %.1fs; %s"
+        % (leaf, concurrent, sec, hub_stages(cpu_jobs)))
+    log_jobs(cpu_jobs)
+    no_launches(cpu_jobs, "hub --device cpu")
+    same = [os.path.join(leaf, leaf + x) for x in (
+        ".fa", ".gc.wig", ".gc.bw", ".rmsk.bed", ".rmsk.bb",
+        ".alignability.wig", ".alignability.bw")]
+    same += [os.path.join(leaf, "chrom.sizes"), "hub.txt", "groups.txt",
+             "lod.txt"]
+
+    def lod_files(root):
+        return sorted(os.path.relpath(os.path.join(dp, f), root)
+                      for dp, _, fs in os.walk(os.path.join(root, "lod"))
+                      for f in fs)
+
+    lods = lod_files(cpu_dir)
+    if not lods or lods != lod_files(cuda_dir):
+        raise AssertionError("hub: the LOD series differ or are empty")
+    nbytes = 0
+    for rel in same + lods:
+        a, b = read(cuda_dir, rel), read(cpu_dir, rel)
+        if a != b or (not a and not rel.endswith(".rmsk.bed")):
+            raise AssertionError("hub: %s differs between --device cuda and "
+                                 "--device cpu (%d vs %d bytes)"
+                                 % (rel, len(a), len(b)))
+        nbytes += len(a)
+    for rel, magic in ((".gc.bw", bbi.BIGWIG_MAGIC),
+                       (".alignability.bw", bbi.BIGWIG_MAGIC),
+                       (".rmsk.bb", bbi.BIGBED_MAGIC)):
+        if int.from_bytes(read(cuda_dir, leaf, leaf + rel)[:4],
+                          "little") != magic:
+            raise AssertionError("hub: %s%s is not a bigWig/bigBed"
+                                 % (leaf, rel))
+    # trackDb: the snake tracks name the hub's other genomes and the
+    # alignability track's range its genome count, so the one-leaf hub's
+    # stanzas are rewritten for the all-genome hub's list
+    snakes = []
+    for other in aln.genome_names():
+        if other != leaf:
+            buf = io.StringIO()
+            ah.trackdb_snake(buf, other, "../lod.txt")
+            snakes += trackdb_stanzas(buf.getvalue())
+    want = snakes + [
+        x.replace("type bigWig 0 1\n", "type bigWig 0 %d\n" % aln.num_genomes)
+        for x in trackdb_stanzas(read(cpu_dir, leaf, "trackDb.txt").decode())]
+    got = trackdb_stanzas(read(cuda_dir, leaf, "trackDb.txt").decode())
+    if got != want or not any("track alignability" in x for x in got):
+        raise AssertionError("hub: %s/trackDb.txt differs from the one-leaf "
+                             "hub's" % leaf)
+    log("  %s's hub files (FASTA, chrom.sizes, GC wiggle and bigWig, "
+        "repeat-mask BED and bigBed, alignability wiggle and bigWig), "
+        "hub.txt, groups.txt, lod.txt and the %d LOD files: %d bytes equal "
+        "on --device cuda and --device cpu; trackDb.txt equal up to the "
+        "hubs' genome lists" % (leaf, len(lods), nbytes))
+
+    # the conservation hub against halPhyloP --device cpu
+    sec, _, lp = done["hub_cons"]
+    jobs = launch_log(lp)
+    log("  hal2assemblyHub --conservation --genomes %s --device cuda (%s): "
+        "%.1fs; %s" % (small_ref, concurrent, sec, hub_stages(jobs)))
+    log_jobs(jobs)
+    add(card_jobs(jobs, "halPhyloP", PALLAS_PORTS + ("phylop_fit",),
+                  "hub --conservation --device cuda"))
+    if int.from_bytes(read(cons_dir, small_ref,
+                           small_ref + ".conservation.bw")[:4],
+                      "little") != bbi.BIGWIG_MAGIC:
+        raise AssertionError("hub: the conservation bigWig is missing")
+    blocks = read(cons_dir, small_ref, small_ref + ".conservation.wig"
+                  ).decode().split("fixedStep ")[1:]
+    if len(blocks) != len(seqs):
+        raise AssertionError("hub conservation: %d fixedStep blocks for %d "
+                             "sequences" % (len(blocks), len(seqs)))
+    dmax, t_cpu = 0.0, 0.0
+    for k, ((chrom, n), blk) in enumerate(zip(seqs, blocks)):
+        sec, _, lp = done["phylop_cpu_%d" % k]
+        t_cpu += sec
+        no_launches(launch_log(lp), "halPhyloP --device cpu")
+        lines = read(d, "phylop_cpu_%d.wig" % k).decode().splitlines()
+        head, _, body = blk.partition("\n")
+        va = np.array([float(x) for x in body.split()[:n]])
+        vb = np.array([float(x) for x in lines[1:]])
+        if "fixedStep " + head != lines[0] or len(vb) != n or len(va) != n:
+            raise AssertionError("hub conservation: %s's header or length "
+                                 "differs from halPhyloP --device cpu" % chrom)
+        dmax = max(dmax, wig_scores_agree(va, vb, "hub conservation %s"
+                                          % chrom))
+    log("  %s.conservation.wig: %d fixedStep headers equal to halPhyloP "
+        "--device cpu's, the first %d values of each sequence (%d in all) "
+        "within the float32 tolerance (max |d| %.3f); cpu %.1fs (%s)"
+        % (small_ref, len(blocks), HUB_PHYLOP_CPU_COLUMNS,
+           sum(n for _, n in seqs), dmax, t_cpu, concurrent))
+
+    # halLodBenchmark --doMaf: its hal2maf runs on the card
+    rows = {}
+    for device in ("cuda", "cpu"):
+        sec, text, lp = done["lodbench_" + device]
+        table = [x.split(", ") for x in text.splitlines()
+                 if x and not x.startswith("#")]
+        col = table[0].index("mafLines")
+        rows[device] = [int(r[col]) for r in table[1:]]
+        jobs = launch_log(lp)
+        log("  halLodBenchmark --steps %s --doMaf --format halz --device %s "
+            "(%s): %.1fs, mafLines %s"
+            % (HUB_LOD_STEPS, device, concurrent, sec, rows[device]))
+        log_jobs([j for j in jobs if j[0] != "halStats"])
+        if device == "cuda":
+            add(card_jobs(jobs, "hal2maf", PALLAS_PORTS,
+                          "halLodBenchmark --doMaf --device cuda"))
+        else:
+            no_launches(jobs, "halLodBenchmark --device cpu")
+    if rows["cuda"] != rows["cpu"] or len(rows["cuda"]) != \
+            len(HUB_LOD_STEPS.split(",")) or min(rows["cuda"]) <= 2:
+        raise AssertionError("halLodBenchmark: MAF lines %s" % rows)
+
+    # hal2mafMP: every slice runs hal2maf --unique, a host path
+    for device, (sec, _, lp) in mafmp.items():
+        jobs = [j for j in launch_log(lp) if j[0] == "hal2maf"]
+        if not jobs or any(j[5] is not None for j in jobs) or \
+                not all("--unique" in j[1] for j in jobs):
+            raise AssertionError("hal2mafMP --device %s: a slice reached the "
+                                 "device engine" % device)
+        mafmp[device] = (read(d, "mafmp_%s.maf" % device), sec, len(jobs))
+    if mafmp["cuda"][0] != mafmp["cpu"][0] or not mafmp["cuda"][0]:
+        raise AssertionError("hal2mafMP: --device cuda MAF differs from "
+                             "--device cpu")
+    log("  hal2mafMP --sliceSize %d --numProc %d: a host path (every slice "
+        "runs hal2maf --unique, outside the device engine's flag set: the "
+        "native engine, with hal2maf's notice, and no slice imports the "
+        "kernels); %d slices, %d bytes equal on --device cuda (%.1fs) and "
+        "--device cpu (%.1fs), the two concurrent"
+        % (MAFMP_SLICE, HUB_PROCS, mafmp["cuda"][2], len(mafmp["cuda"][0]),
+           mafmp["cuda"][1], mafmp["cpu"][1]))
+    log("  hub path launches (the card jobs' sum): %s" % total)
+    log("phase 8 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return total
+
+
+def hub_inputs(tmp: str) -> tuple:
+    """Phase 6's CLI alignment (maf.halz) and phase 7's small.mod, made as
+    those phases make them, for --hub-only: (halz, its first leaf, .mod)."""
+    from hal_tpu_torch.storage import save_alignment
+
+    small = build_maf_alignment(1 << 14, seed=12)
+    hal = os.path.join(tmp, "maf.halz")
+    save_alignment(small, hal, fmt="halz")
+    ref = [n for n in small.genome_names() if small.tree.is_leaf(n)][0]
+    mod = os.path.join(tmp, "small.mod")
+    with open(mod, "w") as f:
+        f.write(mod_text(gtr_model(small.tree.copy(),
+                                   np.random.default_rng(82))))
+    return hal, ref, mod
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port "
+                                 "(all phases when run with no argument)")
+    ap.add_argument("--hub-only", action="store_true",
+                    help="phase 1, then phase 8 alone, on its own copies of "
+                         "phase 6's CLI alignment and phase 7's model; "
+                         "prints no result lines")
+    ap.add_argument("--hub-segments", type=int, default=HUB_SEGMENTS,
+                    help="segments a genome of phase 8's alignment")
+    args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "hal_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
                          "(hal_tpu_torch/ not found beside this script)")
@@ -2326,6 +2753,12 @@ def main() -> int:
     log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                    torch.cuda.get_device_name(0)))
     phase_build()
+    if args.hub_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_hub(tmp, *hub_inputs(tmp), segments=args.hub_segments)
+        log("--hub-only: phases 1 and 8 passed in %.1fs; no result lines"
+            % (time.perf_counter() - t_start))
+        return 0
     t0 = time.perf_counter()
     rec = phase_kernels(dev)
     log("phase 2 passed in %.1fs" % (time.perf_counter() - t0))
@@ -2351,7 +2784,11 @@ def main() -> int:
             paths["sharded"][k] += c
         paths["remote"] = phase_remote(tmp, cli, runs)
         rec["phylop_fit"], paths["phylop"] = phase_phylop(dev, maf, tmp)
+        small_hal, small_ref = maf[2], maf[3]
         del maf
+        torch.cuda.empty_cache()
+        paths["hub"] = phase_hub(tmp, small_hal, small_ref,
+                                 os.path.join(tmp, "small.mod"))
     for name in PALLAS_PORTS:
         rec[name]["launches"] = counts[name]
     rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]

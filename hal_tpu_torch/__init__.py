@@ -31,6 +31,12 @@ hal_tpu's so each counterpart is easy to find:
                         wrappers (phylop_jax.py's traced program)
   phylop_torch.py       DevicePhyloP (phylop_jax.py)
   parallel/mp.py        copy of the process-parallel helpers
+  io/bbi.py, assemblyhub.py, blockviz.py, ops/{lod,rearrangement}.py
+                        copies of the assembly hub's writers, track
+                        generators, LOD extraction and browser queries
+  ops/liftover_baseline.py
+                        copy of the C++ single-core liftover anchor's
+                        binding (its library built at first use)
   parallel/mesh.py      a mesh of P processes x L local shards and its
                         collectives over torch.distributed (jax.sharding)
   parallel/sharded.py, parallel/ring_sharded.py, parallel/distributed.py
@@ -39,4 +45,35 @@ hal_tpu's so each counterpart is easy to find:
   tools/__init__.py     copy of the tools' parser and error conventions
   tools/*.py            the CLIs, with --device {cuda,cpu}
   csrc/*.cu             the CUDA sources, built by ops/_build.py
+
+When the environment variable HAL_TPU_TORCH_LAUNCH_LOG names a file, every
+process that imports this package appends one JSON line to it at exit:
+{"argv", "pid", "start", "end" (wall-clock seconds), "launches"}, where
+launches is hal_tpu_torch.ops.kernels.launches() if the process imported
+the kernels' module, else null (it launched none).  A tool that runs the
+port's tools as jobs in other processes (hal2assemblyHub, halLodBenchmark,
+hal2mafMP) sets it to see each job's seconds and which kernels it launched.
 """
+
+import atexit as _atexit
+import os as _os
+import time as _time
+
+LAUNCH_LOG_ENV = "HAL_TPU_TORCH_LAUNCH_LOG"
+
+
+def _log_process(path: str, start: float) -> None:
+    import json
+    import sys
+
+    kernels = sys.modules.get("hal_tpu_torch.ops.kernels")
+    line = json.dumps({"argv": sys.argv, "pid": _os.getpid(), "start": start,
+                       "end": _time.time(),
+                       "launches": kernels.launches() if kernels else None})
+    with open(path, "a") as f:  # one short append a process
+        f.write(line + "\n")
+
+
+if _os.environ.get(LAUNCH_LOG_ENV):
+    _atexit.register(_log_process, _os.environ[LAUNCH_LOG_ENV], _time.time())
+

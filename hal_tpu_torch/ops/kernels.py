@@ -11,6 +11,11 @@ stream, or raises.  Nothing catches a failed build or launch.
 Each wrapper carries `launches`, a plain integer that grows by one each
 time the wrapper launches its kernel, so a run can show that it went
 through the kernel; reset_launches() sets them all to 0.
+
+A port-only diagnostic carries the counts out of other processes: when the
+environment variable HAL_TPU_TORCH_LAUNCH_LOG names a file, each process
+appends its argv, its seconds and launches() to it at exit (see
+hal_tpu_torch/__init__.py).
 """
 
 from __future__ import annotations
@@ -312,3 +317,4 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+

@@ -540,3 +540,238 @@ def test_parallel_mp_copy_equals_original(stats_halz):
         ["%d\n" % k for k in range(5)]
     with pytest.raises(RuntimeError, match="failed"):
         port_mp.run_shell_command("exit 3")
+
+
+# ------------------------------------------- the assembly-hub path's copies
+
+def _bbi_inputs(rng, n_chroms, n_runs):
+    sizes = {"chr%d" % i: 50 * n_runs + 100 for i in range(n_chroms)}
+    data, beds = {}, []
+    for c in sizes:
+        pos, runs = int(rng.integers(0, 20)), []
+        for _ in range(n_runs):
+            ln = int(rng.integers(1, 30))
+            runs.append((pos, pos + ln, float(rng.normal())))
+            beds.append((c, pos, pos + ln + int(rng.integers(0, 40)),
+                         "f%d\t%d" % (len(beds), int(rng.integers(0, 1000)))))
+            pos += ln + int(rng.integers(0, 15))
+        data[c] = runs
+    return sizes, data, beds
+
+
+@pytest.mark.parametrize("multilevel", [False, True], ids=["flat", "multilevel"])
+def test_bbi_writers_equal_original(tmp_path, monkeypatch, multilevel):
+    """The copied bigWig and bigBed writers write the original's bytes for
+    the same runs and BED lines, from the Python API and from wiggle / BED
+    files; `multilevel` shrinks the blocks (as tests/test_bbi.py does) so
+    that the R-tree and the chrom B+ tree need internal levels."""
+    from hal_tpu.io import bbi as jax_bbi
+    from hal_tpu_torch.io import bbi as port_bbi
+
+    if multilevel:
+        for mod in (jax_bbi, port_bbi):
+            monkeypatch.setattr(mod, "ITEMS_PER_SLOT", 4)
+            monkeypatch.setattr(mod, "BLOCK_SIZE", 4)
+            monkeypatch.setattr(mod, "ZOOM_PER_SLOT", 4)
+    sizes, data, beds = _bbi_inputs(np.random.default_rng(7),
+                                    23 if multilevel else 3, 150)
+    wig = tmp_path / "in.wig"
+    wig.write_text("".join(
+        "variableStep chrom=%s span=1\n" % c
+        + "".join("%d %.4f\n" % (s + 1, v) for s, _e, v in runs)
+        for c, runs in data.items())
+        + "fixedStep chrom=chr0 start=%d step=3 span=2\n1\n2.5\n-3\n"
+        % (sizes["chr0"] - 40))
+    bed = tmp_path / "in.bed"
+    bed.write_text("".join("%s\t%d\t%d\t%s\n" % b for b in beds[::-1]))
+    for name, mod in (("jax", jax_bbi), ("port", port_bbi)):
+        mod.write_bigwig(str(tmp_path / (name + ".bw")), sizes, data)
+        mod.write_bigwig(str(tmp_path / (name + "_raw.bw")), sizes, data,
+                         compress=False)
+        mod.write_bigbed(str(tmp_path / (name + ".bb")), sizes, beds,
+                         field_count=5)
+        mod.wig_to_bigwig(str(wig), sizes, str(tmp_path / (name + "_wig.bw")))
+        mod.bed_to_bigbed(str(bed), sizes, str(tmp_path / (name + "_bed.bb")))
+    for suffix in (".bw", "_raw.bw", ".bb", "_wig.bw", "_bed.bb"):
+        want = (tmp_path / ("jax" + suffix)).read_bytes()
+        assert (tmp_path / ("port" + suffix)).read_bytes() == want, suffix
+    if multilevel:  # the R-tree's root is an internal node
+        buf = (tmp_path / "port.bw").read_bytes()
+        (index,) = np.frombuffer(buf[24:32], "<u8")
+        assert buf[index + 48] == 0
+
+
+def test_assemblyhub_tracks_equal_original():
+    """gc_percent_wig and masked_bed of every genome, and the trackDb
+    writers, print the original's text."""
+    from hal_tpu import assemblyhub as jax_ah
+    from hal_tpu_torch import assemblyhub as port_ah
+
+    opts = dict(FIXTURE, seed=22, max_segment_length=60)
+    jaln = jax_random_alignment(**opts)
+    paln = create_random_alignment(**opts)
+    n = 0
+    for name in jaln.genome_names():
+        for fn, args in (("gc_percent_wig", ()), ("gc_percent_wig", (3,)),
+                         ("masked_bed", ())):
+            want, got = io.StringIO(), io.StringIO()
+            getattr(jax_ah, fn)(jaln.open_genome(name), want, *args)
+            getattr(port_ah, fn)(paln.open_genome(name), got, *args)
+            assert got.getvalue() == want.getvalue(), (name, fn, args)
+            n += bool(want.getvalue())
+    assert n
+    for fn, args in (("trackdb_gc", ("g", True)),
+                     ("trackdb_alignability", ("g", 7, False)),
+                     ("trackdb_conservation", ("g", True)),
+                     ("trackdb_rmsk", ("g", False)),
+                     ("trackdb_bed", ("t", "p.bb", True)),
+                     ("trackdb_wig", ("t", "p.wig", False)),
+                     ("trackdb_snake", ("o", "../lod.txt"))):
+        want, got = io.StringIO(), io.StringIO()
+        getattr(jax_ah, fn)(want, *args)
+        getattr(port_ah, fn)(got, *args)
+        assert got.getvalue() == want.getvalue() and want.getvalue(), fn
+
+
+@pytest.mark.parametrize("opts", [{}, dict(gap_threshold=3),
+                                  dict(just_subs=True), dict(do_subs=False)],
+                         ids=["default", "gap3", "just_subs", "no_subs"])
+def test_analyze_branch_equals_original(opts):
+    """ops.rearrangement.analyze_branch: the same events, runs and
+    substitution counts on every branch (the native substitution counter
+    on both sides, or none with do_subs=False)."""
+    from hal_tpu.ops import rearrangement as jax_rea
+    from hal_tpu_torch.ops import rearrangement as port_rea
+
+    fixture = dict(FIXTURE, seed=23, min_segments=20, max_segments=80)
+    jaln = jax_random_alignment(**fixture)
+    paln = create_random_alignment(**fixture)
+    events = 0
+    for name in jaln.genome_names():
+        if jaln.tree.parent(name) is None:
+            continue
+        want = jax_rea.analyze_branch(jaln, name, **opts)
+        got = port_rea.analyze_branch(paln, name, **opts)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), name
+        events += len(want.events)
+    assert events or opts.get("just_subs")
+
+
+@pytest.mark.parametrize("scale,kw", [(2, {}), (9, {}),
+                                      (9, dict(only_orthologs=True)),
+                                      (4, dict(keep_sequences=True))])
+def test_extract_lod_equals_original(scale, kw):
+    """ops.lod.extract_lod: every array, the tree and the metadata of the
+    coarse alignment equal the original's."""
+    from hal_tpu.ops.lod import extract_lod as jax_lod
+    from hal_tpu_torch.ops.lod import extract_lod as port_lod
+
+    fixture = dict(FIXTURE, seed=24, min_segments=30, max_segments=90)
+    want = jax_lod(jax_random_alignment(**fixture), scale, **kw)
+    got = port_lod(create_random_alignment(**fixture), scale, **kw)
+    _assert_same_alignment(got, want)
+    assert got.metadata == want.metadata == {"lodScale": str(scale)}
+
+
+def test_blockviz_queries_equal_original(tmp_path):
+    """blockviz: species, chroms, DNA and get_blocks_in_target_range in
+    every dupe and sequence mode equal the original's, on an alignment
+    and on a LOD manifest."""
+    import dataclasses as dc
+
+    from hal_tpu import blockviz as jax_bv
+    from hal_tpu.ops.lod import extract_lod as jax_lod
+    from hal_tpu_torch import blockviz as port_bv
+
+    fixture = dict(FIXTURE, seed=25, min_segments=20, max_segments=60)
+    aln = jax_random_alignment(**fixture)
+    hal = str(tmp_path / "aln.halz")
+    jax_save(aln, hal, fmt="halz")
+    jax_save(jax_lod(aln, 6), str(tmp_path / "lod6.halz"), fmt="halz")
+    (tmp_path / "lod.txt").write_text("0 aln.halz\n40 lod6.halz\n")
+    leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+    t_sp = leaves[0]
+    g = aln.open_genome(t_sp)
+    chrom, clen = g.seq_names[0], int(g.seq_length(0))
+    n_blocks = 0
+    for path in (hal, str(tmp_path / "lod.txt")):
+        hj, hp = jax_bv.hal_open(path), port_bv.hal_open(path)
+        assert port_bv.get_genome_names(hp) == jax_bv.get_genome_names(hj)
+        assert port_bv.get_chroms(hp, t_sp) == jax_bv.get_chroms(hj, t_sp)
+        assert port_bv.get_dna(hp, t_sp, chrom, 1, clen - 1) == \
+            jax_bv.get_dna(hj, t_sp, chrom, 1, clen - 1)
+        assert port_bv.get_max_lod_query_length(hp) == \
+            jax_bv.get_max_lod_query_length(hj)
+        for q_sp in aln.genome_names():
+            if q_sp == t_sp:
+                continue
+            for dup, seq, adj in ((jax_bv.HAL_NO_DUPS, jax_bv.HAL_NO_SEQUENCE,
+                                   False),
+                                  (jax_bv.HAL_QUERY_DUPS,
+                                   jax_bv.HAL_LOD0_SEQUENCE, False),
+                                  (jax_bv.HAL_QUERY_AND_TARGET_DUPS,
+                                   jax_bv.HAL_FORCE_LOD0_SEQUENCE, True)):
+                args = (q_sp, t_sp, chrom, 0, clen)
+                kw = dict(dup_mode=dup, seq_mode=seq,
+                          map_back_adjacencies=adj)
+                wb, wd = jax_bv.get_blocks_in_target_range(hj, *args, **kw)
+                gb, gd = port_bv.get_blocks_in_target_range(hp, *args, **kw)
+                assert [dc.asdict(b) for b in gb] == \
+                    [dc.asdict(b) for b in wb], (path, q_sp, dup)
+                assert [dc.asdict(d) for d in gd] == \
+                    [dc.asdict(d) for d in wd], (path, q_sp, dup)
+                n_blocks += len(wb)
+    assert n_blocks
+
+
+@pytest.mark.parametrize("flags", [[], ["--subtree", "--upper",
+                                        "--lineWidth", "7"],
+                                   ["--ucscSequenceNames", "--start", "3",
+                                    "--length", "40"]],
+                         ids=["default", "subtree-upper-7", "ucsc-range"])
+def test_hal2fasta_copy_equals_original(stats_halz, capsys, flags):
+    """tools.hal2fasta prints the original's FASTA: the root with its
+    subtree, upper-cased at a line width, and a genome-coordinate range."""
+    from hal_tpu.tools import hal2fasta as jax_fa
+    from hal_tpu_torch.tools import hal2fasta as port_fa
+
+    aln = jax_open(stats_halz)
+    genome = aln.root_name if "--subtree" in flags else \
+        [n for n in aln.genome_names() if aln.tree.is_leaf(n)][0]
+    capsys.readouterr()
+    jax_fa.run([stats_halz, genome] + flags)
+    want = capsys.readouterr().out
+    port_fa.run([stats_halz, genome] + flags)
+    assert capsys.readouterr().out == want and want.startswith(">")
+    if "--subtree" in flags:
+        assert want.count(">") == sum(
+            aln.open_genome(n).num_sequences for n in aln.genome_names())
+        body = "".join(x for x in want.splitlines() if not x.startswith(">"))
+        assert body and body == body.upper()
+
+
+def test_liftover_baseline_copy_equals_original():
+    """ops.liftover_baseline: the port's library, built from
+    native/liftover_baseline.cpp, gives the fragment count and checksum of
+    the original's tracked native/libhalbaseline.so on every genome pair."""
+    from hal_tpu.ops import liftover_baseline as jax_lb
+    from hal_tpu_torch.ops import liftover_baseline as port_lb
+
+    if not jax_lb.available():
+        pytest.skip("the original's tracked native/libhalbaseline.so (a "
+                    "-march=native build) does not load on this CPU")
+    assert port_lb.available()
+    aln = jax_random_alignment(**dict(FIXTURE, seed=26))
+    pairs = _pairs(aln)
+    assert pairs
+    total = 0
+    for src, tgt in pairs:
+        lo, hi = _intervals(aln, src, 300, 5)
+        want = jax_lb.CppBaseline(aln, src, tgt)
+        got = port_lb.CppBaseline(aln, src, tgt)
+        w = want.run(lo, hi)
+        assert got.run(lo, hi) == w, (src, tgt)
+        total += w[0]
+        want.close()
+        got.close()
+    assert total

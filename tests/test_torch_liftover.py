@@ -298,8 +298,8 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 
 def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
-    phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap
-    and host copies included —
+    phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap,
+    the assembly-hub path's tools and host copies included —
     imports without jax or any module of the JAX package (hal_tpu,
     hal_tpu.*) entering the process: the port keeps its own copies of the
     host code it needs."""
@@ -317,7 +317,12 @@ def test_port_imports_no_jax():
             "tools.halTreePhyloP tools.halPctId tools.halCoverage "
             "parallel.mesh parallel.sharded parallel.ring_sharded "
             "parallel.distributed graft_entry tools.benchScaling "
-            "storage.remote tools.benchOverlap').split()}\n"
+            "storage.remote tools.benchOverlap io.bbi assemblyhub "
+            "tools.hal2fasta ops.rearrangement ops.lod tools.halLodExtract "
+            "tools.halLodInterpolate tools.hal2assemblyHub "
+            "tools.halGenerateComparisonHub blockviz tools.blockVizTest "
+            "tools.blockVizBenchmark tools.halLodBenchmark tools.hal2mafMP "
+            "ops.liftover_baseline').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
@@ -327,6 +332,38 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert int(res.stdout.strip()) >= 20
+
+
+def test_port_strings_name_no_jax_module():
+    """No string in hal_tpu_torch/ (docstrings aside) names a module of the
+    JAX package, as an import path or a `-m` target: a job the port starts
+    cannot run the JAX package's tools."""
+    pattern = re.compile(r"\bhal_tpu\.[A-Za-z_]|-m\s+hal_tpu\b(?!_)")
+    root = os.path.join(REPO, "hal_tpu_torch")
+    seen = bad = 0
+    for dp, _dirs, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            tree = ast.parse(open(os.path.join(dp, f)).read())
+            docs = {id(n.body[0].value) for n in ast.walk(tree)
+                    if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                      ast.AsyncFunctionDef))
+                    and n.body and isinstance(n.body[0], ast.Expr)
+                    and isinstance(n.body[0].value, ast.Constant)}
+            for n in ast.walk(tree):
+                if isinstance(n, ast.Constant) and isinstance(n.value, str) \
+                        and id(n) not in docs:
+                    seen += 1
+                    if pattern.search(n.value):
+                        bad += 1
+                        print(os.path.relpath(os.path.join(dp, f), REPO),
+                              n.lineno, n.value)
+    assert seen > 1000 and bad == 0
+    assert pattern.search("python -m hal_tpu.tools.halStats")
+    assert pattern.search("%s -m hal_tpu --help")
+    assert not pattern.search("-m hal_tpu_torch.tools.halStats")
+    assert not pattern.search("by hal_tpu hal2assemblyHub from")
 
 
 def _names_hal_tpu(text: str) -> bool:
