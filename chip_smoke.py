@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --hub-only [--hub-segments N]   # phases 1 and 8
+    python3 chip_smoke.py --analysis-only [--analysis-segments N]  # 1 and 9
 
 Phases (any failure raises and exits non-zero; nothing is caught), each
 printing its seconds:
@@ -97,14 +98,27 @@ printing its seconds:
      runs hal2maf --unique, outside the device engine).  The jobs run in
      subprocesses, each appending its argv, seconds and launches to the
      port's HAL_TPU_TORCH_LAUNCH_LOG; each job's seconds are printed.
-Phases 4-8 (6b included) each drive a path with the launch counts set to
+  9. the comparative-analysis tools on phase 4's CLI alignment shape with
+     DNA (seed 11, 2^12-1.5 x 2^12 segments of ~2 kb a genome):
+     halValidate; halSynteny on the deepest leaf pair, whole genome;
+     halLiftoverStatus of 2^14 BED12 genes; syntenyRates of 2^12 sorted
+     genes; the neutral-indel pipeline (halTreeMutations,
+     halTreeNIBackground, halTreeNIConservation, then
+     halTreeNITurnover); runDotplot of one sequence.  Each lifting tool
+     runs with --device cuda in this process, under the profiler (its
+     seconds and the card's device time; runDotplot in a subprocess, its
+     halLiftover job in the launch log), and with --device cpu in a
+     subprocess beside it: every file it writes, its stdout and its
+     stderr equal between the two.
+Phases 4-9 (6b included) each drive a path with the launch counts set to
 0 just before and read just after; the three Pallas kernels' ports must
 launch on every path (on the "sharded" path, on each step's first call:
 the four steps of phase 5b and the sharded column step of phase 6; on the
 "hub" path in every card job: each alignability job, the conservation
 job and halLodBenchmark's hal2maf runs, whose counts start at 0 in their
-own processes), phylop_fit on the phyloP path and in the conservation
-job, and no kernel in a --device cpu job.
+own processes; on the "analysis" path in every card run of a lifting
+tool, runDotplot's halLiftover job included), phylop_fit on the phyloP
+path and in the conservation job, and no kernel in a --device cpu job.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -164,6 +178,19 @@ HUB_PROCS = 4                # the hub's --numProc, hal2mafMP's too
 HUB_LOD_STEPS = "2,4"        # halLodBenchmark --steps
 HUB_PHYLOP_CPU_COLUMNS = 1 << 16
 MAFMP_SLICE = 1 << 20        # hal2mafMP --sliceSize
+# phase 9: the analysis tools on phase 4's CLI alignment shape (seed 11,
+# 1900-2100 bp segments) with DNA, which their PSL output reads, cut from
+# 40,000-60,000 segments a genome to 2^12-1.5 x 2^12 (~10 Mb genomes):
+# halSynteny's chaining visits every block once a path it extracts, so
+# its host time grows with the square of the genome (PERF.md section 4,
+# "reduced")
+ANALYSIS_SEGMENTS = 1 << 12
+ANALYSIS_STATUS_GENES = 1 << 14
+ANALYSIS_RATE_GENES = 1 << 12
+# halTreeNIConservation's p-value and cut: the fixture's indels are rare
+# (~3 a Mb), so the defaults (0.05, 0.5) call no conserved interval and
+# halTreeNITurnover would lift nothing
+ANALYSIS_NI_FLAGS = ("--pval", "0.5", "--cutoff", "0.1")
 # The subtree fit's 4 alternating rounds stop short of convergence on a
 # ridge of (scale, subtree scale), so its float32 result depends on
 # rounding: the JAX package's float32 program and the port's plain float32
@@ -2358,14 +2385,15 @@ def port_tools(directory: str):
     output in directory/<name>.out and .err, each process it starts
     appending to the launch log directory/<name>.jsonl.  start returns a
     callable that waits for the tool and returns (seconds, stdout, the
-    launch log's path); a non-zero exit raises.  On leaving, every tool
+    launch log's path); a non-zero exit raises.  extra_env adds to the
+    tool's environment.  On leaving, every tool
     still running is killed with its process group."""
     from hal_tpu_torch import LAUNCH_LOG_ENV
 
     procs = []
 
-    def start(tool: str, args, name: str):
-        env = dict(os.environ, PYTHONPATH=REPO)
+    def start(tool: str, args, name: str, extra_env=None):
+        env = dict(os.environ, PYTHONPATH=REPO, **(extra_env or {}))
         env[LAUNCH_LOG_ENV] = os.path.join(directory, name + ".jsonl")
         out = os.path.join(directory, name + ".out")
         err = os.path.join(directory, name + ".err")
@@ -2728,6 +2756,244 @@ def hub_inputs(tmp: str) -> tuple:
     return hal, ref, mod
 
 
+def analysis_genes(g, rng, n_status: int, n_rates: int) -> tuple:
+    """BED12 text of n_status genes of 1-8 exons over 1-20 kb at random
+    places of g's sequences, and BED6 text of n_rates sorted, disjoint
+    genes of up to 2 kb and half a slot, one in each of n_rates equal slots
+    of g."""
+    rows12 = []
+    for k in range(n_status):
+        si = int(rng.integers(0, g.num_sequences))
+        span = int(rng.integers(1000, 20000))
+        st = int(rng.integers(0, g.seq_length(si) - span))
+        nb = int(rng.integers(1, 9))
+        cuts = np.sort(rng.choice(np.arange(1, span), 2 * nb - 2,
+                                  replace=False))
+        edges = np.concatenate([[0], cuts, [span]])
+        starts, ends = edges[0::2], edges[1::2]
+        rows12.append("%s\t%d\t%d\tgene%d\t0\t%s\t%d\t%d\t0\t%d\t%s,\t%s,\n"
+                      % (g.seq_names[si], st, st + span, k, "+-"[k % 2], st,
+                         st + span, nb, ",".join(str(int(e - s)) for s, e
+                                                 in zip(starts, ends)),
+                         ",".join(str(int(s)) for s in starts)))
+    rows6 = []
+    per = -(-n_rates // g.num_sequences)
+    for si in range(g.num_sequences):
+        slot = g.seq_length(si) // per
+        for j in range(per):
+            ln = int(rng.integers(slot // 10 + 1, min(2000, slot // 2)))
+            st = j * slot + int(rng.integers(0, slot - ln))
+            rows6.append("%s\t%d\t%d\tgene%d\t0\t%s\n"
+                         % (g.seq_names[si], st, st + ln, len(rows6),
+                            "+-"[int(rng.integers(0, 2))]))
+    return "".join(rows12), "".join(rows6[:n_rates])
+
+
+def run_captured(run, argv, out_path: str, err_path: str, card: str):
+    """run(argv) in this process with its stdout and stderr in files, under
+    torch.profiler when card is a CUDA device: (seconds, device ms or None
+    where the profiler recorded no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if card == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with open(out_path, "w") as fo, open(err_path, "w") as fe, \
+            contextlib.redirect_stdout(fo), contextlib.redirect_stderr(fe), \
+            profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run(argv)
+        if card == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA) / 1e3
+    return sec, (dev or None)
+
+
+def phase_analysis(tmp: str, segments: int = ANALYSIS_SEGMENTS,
+                   card: str = "cuda") -> dict:
+    """The comparative-analysis tools on phase 4's CLI alignment shape with
+    DNA, cut to `segments` segments a genome: halValidate; halSynteny on
+    the deepest leaf pair, whole genome; halLiftoverStatus of
+    ANALYSIS_STATUS_GENES BED12 genes; syntenyRates of ANALYSIS_RATE_GENES
+    sorted genes; the neutral-indel pipeline halTreeMutations ->
+    halTreeNIBackground -> halTreeNIConservation -> halTreeNITurnover;
+    runDotplot of the source's first sequence.  Each lifting tool runs on
+    --device card in this process (under the profiler: its seconds and the
+    card's device time) and on --device cpu in a subprocess, the cpu runs
+    concurrently with the card's; every output file, stdout and stderr
+    must be equal between the two; each card run launches every Pallas
+    port, no cpu run any kernel.  Returns the kernels' launches summed
+    over the card runs."""
+    import shutil
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.randgen import create_random_alignment
+    from hal_tpu_torch.storage import save_alignment
+    from hal_tpu_torch.tools import (halLiftoverStatus, halSynteny,
+                                     halTreeNITurnover, halValidate,
+                                     syntenyRates)
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "analysis")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    aln = create_random_alignment(
+        seed=11, max_genomes=10, min_genomes=8, mean_degree=1.5,
+        max_branch_length=0.2, min_segment_length=1900,
+        max_segment_length=2100, min_segments=segments,
+        max_segments=segments * 3 // 2, store_dna=True)
+    hal = os.path.join(d, "aln.halz")
+    save_alignment(aln, hal, fmt="halz")
+    src, tgt = pick_pair(aln)
+    g = aln.open_genome(src)
+    bed12, bed6 = (os.path.join(d, x) for x in ("genes12.bed", "genes6.bed"))
+    for path, text in zip((bed12, bed6), analysis_genes(
+            g, np.random.default_rng(9), ANALYSIS_STATUS_GENES,
+            ANALYSIS_RATE_GENES)):
+        with open(path, "w") as f:
+            f.write(text)
+    log("phase 9 analysis: %d genomes of %d-%d segments with DNA (seed 11, "
+        "%.1f-%.1f Mb), %s -> %s (path %d), in %.1fs"
+        % (aln.num_genomes, segments, segments * 3 // 2,
+           min(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
+           max(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
+           src, tgt, len(aln.tree.path(src, tgt)),
+           time.perf_counter() - t0))
+    ni = os.path.join(d, "ni")
+    chrom = g.seq_names[0]
+    jobs = {  # name: (tool module, arguments given the output prefix)
+        "halSynteny": (halSynteny, lambda o: [
+            hal, o + ".psl", "--queryGenome", src, "--targetGenome", tgt]),
+        "halLiftoverStatus": (halLiftoverStatus, lambda o: [
+            bed12, hal, src, tgt, o + ".tsv"]),
+        "syntenyRates": (syntenyRates, lambda o: [
+            hal, src, bed6, tgt, "--mergeBedLines"]),
+        "halTreeNITurnover": (halTreeNITurnover, lambda o: [hal, o]),
+        "runDotplot": (None, lambda o: [
+            hal, src, chrom, tgt, "--out", o + ".tsv"]),
+    }
+    total = {}
+    rows = []
+    cpu_env = {"OMP_NUM_THREADS": "1"}  # the references share the host
+    with port_tools(d) as start:
+        # the neutral-indel stages before the lift, one after another, and
+        # the references of the other tools, all beside the card's runs
+        chain, failed = [], []
+
+        def ni_stages():
+            try:
+                for tool, args in (
+                        ("halTreeMutations", [hal, ni]),
+                        ("halTreeNIBackground", [hal, ni]),
+                        ("halTreeNIConservation", [hal, ni]
+                         + list(ANALYSIS_NI_FLAGS))):
+                    chain.append((tool,) + start(tool, args, "ni_" + tool)())
+            except AssertionError as e:  # raised below, in this thread's caller
+                failed.append(e)
+
+        stages = threading.Thread(target=ni_stages, daemon=True)
+        stages.start()
+        cpu = {name: start(name, args(os.path.join(d, name + "_cpu"))
+                           + ["--device", "cpu"], name + "_cpu", cpu_env)
+               for name, (_mod, args) in jobs.items()
+               if name != "halTreeNITurnover"}
+        out = os.path.join(d, "validate")
+        sec, _dev = run_captured(halValidate.run, [hal], out + ".out",
+                                 out + ".err", "cpu")
+        if open(out + ".out").read() != "\nFile valid\n":
+            raise AssertionError("halValidate: %s" % open(out + ".err").read())
+        log("  halValidate: File valid in %.1fs (host)" % sec)
+
+        def card_run(name, prefix):
+            mod, args = jobs[name]
+            K.reset_launches()
+            sec, dev = run_captured(mod.run, args(prefix) + [
+                "--device", card], prefix + ".out", prefix + ".err", card)
+            counts = K.launches()
+            check_launched(counts, "analysis %s --device %s" % (name, card))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            rows.append((name, sec, dev, counts))
+
+        for name in ("halSynteny", "halLiftoverStatus", "syntenyRates"):
+            card_run(name, os.path.join(d, name + "_card"))
+        sec, _, lp = start("runDotplot", jobs["runDotplot"][1](
+            os.path.join(d, "runDotplot_card")) + ["--device", card],
+            "runDotplot_card")()
+        counts = card_jobs(launch_log(lp), "halLiftover", PALLAS_PORTS,
+                           "analysis runDotplot --device %s" % card)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rows.append(("runDotplot", sec, None, counts))
+        stages.join()
+        if failed:
+            raise failed[0]
+        for tool, sec, text, _lp in chain:
+            log("  %s (host, beside the card's runs): %.1fs%s"
+                % (tool, sec, "; " + text.strip().replace("\n", "; ")[:400]
+                   if text.strip() else ""))
+        ni_dirs = {run: os.path.join(d, "halTreeNITurnover_" + run)
+                   for run in ("card", "cpu")}
+        for path in ni_dirs.values():
+            shutil.copytree(ni, path)
+        cpu["halTreeNITurnover"] = start(
+            "halTreeNITurnover", [hal, ni_dirs["cpu"], "--device", "cpu"],
+            "halTreeNITurnover_cpu", cpu_env)
+        card_run("halTreeNITurnover", ni_dirs["card"])
+        refs = {name: wait() for name, wait in cpu.items()}
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def outputs(name, run):
+        base = os.path.join(d, "%s_%s" % (name, run))
+        if name == "halTreeNITurnover":
+            got = {f: read(os.path.join(base, f))
+                   for f in sorted(os.listdir(base))}
+        else:
+            got = {x: read(base + x) for x in (".psl", ".tsv")
+                   if os.path.exists(base + x)}
+        got["stdout"] = read(base + ".out")
+        got["stderr"] = read(base + ".err")
+        return got
+
+    for name, sec, dev, counts in rows:
+        want = outputs(name, "cpu")
+        got = outputs(name, "card")
+        if got != want:
+            raise AssertionError("analysis %s: --device %s differs from "
+                                 "--device cpu in %s" % (
+                                     name, card, sorted(
+                                         k for k in set(got) | set(want)
+                                         if got.get(k) != want.get(k))))
+        body = {k: v for k, v in want.items() if k not in ("stdout",
+                                                           "stderr")}
+        if not any(body.values()) and not want["stdout"]:
+            raise AssertionError("analysis %s wrote nothing" % name)
+        ref_sec, _, ref_log = refs[name]
+        no_launches(launch_log(ref_log), "analysis %s --device cpu" % name)
+        log("  %s: %s; --device %s %.2fs (%s), --device cpu %.2fs "
+            "(concurrent); launches %s"
+            % (name, ", ".join("%s %d bytes" % (k, len(v))
+                               for k, v in sorted(want.items())
+                               if k in ("stdout", "stderr", ".psl", ".tsv")
+                               or name == "halTreeNITurnover"
+                               and k.endswith(("_pm.bed", "_pa.bed"))),
+               card, sec,
+               "device %.2f ms, %.2f%% of the run" % (dev, dev / sec / 10)
+               if dev else "device time not measured%s" % (
+                   ": a subprocess job" if name == "runDotplot" else ""),
+               ref_sec, {k: v for k, v in counts.items() if v}))
+    log("  analysis path launches (the card runs' sum): %s" % total)
+    log("phase 9 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2739,6 +3005,12 @@ def main(argv=None) -> int:
                          "prints no result lines")
     ap.add_argument("--hub-segments", type=int, default=HUB_SEGMENTS,
                     help="segments a genome of phase 8's alignment")
+    ap.add_argument("--analysis-only", action="store_true",
+                    help="phase 1, then phase 9 alone; prints no result "
+                         "lines")
+    ap.add_argument("--analysis-segments", type=int,
+                    default=ANALYSIS_SEGMENTS,
+                    help="fewest segments a genome of phase 9's alignment")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "hal_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -2750,14 +3022,24 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: CUDA is not available")
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    log("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
-                                   torch.cuda.get_device_name(0)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    log("torch %s, CUDA %s, %s; nvidia-smi: %s"
+        % (torch.__version__, torch.version.cuda,
+           torch.cuda.get_device_name(0), smi[0]))
     phase_build()
     if args.hub_only:
         with tempfile.TemporaryDirectory() as tmp:
             phase_hub(tmp, *hub_inputs(tmp), segments=args.hub_segments)
         log("--hub-only: phases 1 and 8 passed in %.1fs; no result lines"
             % (time.perf_counter() - t_start))
+        return 0
+    if args.analysis_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_analysis(tmp, segments=args.analysis_segments)
+        log("--analysis-only: phases 1 and 9 passed in %.1fs; no result "
+            "lines" % (time.perf_counter() - t_start))
         return 0
     t0 = time.perf_counter()
     rec = phase_kernels(dev)
@@ -2789,6 +3071,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         paths["hub"] = phase_hub(tmp, small_hal, small_ref,
                                  os.path.join(tmp, "small.mod"))
+        paths["analysis"] = phase_analysis(tmp,
+                                           segments=args.analysis_segments)
     for name in PALLAS_PORTS:
         rec[name]["launches"] = counts[name]
     rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]
@@ -2802,9 +3086,6 @@ def main(argv=None) -> int:
     log("all phases passed in %.1fs" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [rec[k] for k in PALLAS_PORTS
                                   + ("phylop_fit",)]}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

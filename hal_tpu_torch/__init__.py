@@ -21,7 +21,8 @@ hal_tpu's so each counterpart is easy to find:
   ops/liftover_bulk.py  bulk BED liftover: the host halves copied, the
                         device branches on the torch mapper
   ops/liftover.py       a copy of hal_tpu's Liftover whose
-                        convert_batched runs the torch mapper
+                        convert_batched, visit_lines_batched and map_lines
+                        run the torch mapper
   ops/depth.py, ops/column_torch.py
                         the depth engine and the device column engine
                         (ops/depth.py, ops/column_jax.py)
@@ -42,8 +43,15 @@ hal_tpu's so each counterpart is easy to find:
   parallel/sharded.py, parallel/ring_sharded.py, parallel/distributed.py
                         the sharded steps (hal_tpu/parallel/*)
   graft_entry.py        entry() and dryrun_multichip (__graft_entry__.py)
+  analysis/, ops/validate.py, randgen_exact.py
+                        copies of the interval algebra, turnover model and
+                        neutral-indel statistics, structural validation and
+                        the reference's bit-exact random generator
   tools/__init__.py     copy of the tools' parser and error conventions
-  tools/*.py            the CLIs, with --device {cuda,cpu}
+  tools/*.py            the CLIs; those that reach device code take
+                        --device {cuda,cpu} (tools/_device.py for the
+                        analysis tools that lift)
+  __main__.py           python -m hal_tpu_torch <tool> (hal_tpu/__main__.py)
   csrc/*.cu             the CUDA sources, built by ops/_build.py
 
 When the environment variable HAL_TPU_TORCH_LAUNCH_LOG names a file, every

@@ -1,7 +1,9 @@
 """Port copy of hal_tpu/ops/liftover.py (numpy only; the same code, imports
-pointing at hal_tpu_torch), merged with the port's batched convert:
-Liftover.convert_batched maps line batches on the torch segment mapper
-(hal_tpu_torch.ops.segmap_torch.BatchMapper) on `device`.
+pointing at hal_tpu_torch), merged with the port's batched entries:
+Liftover.convert_batched, visit_lines_batched and map_lines map line
+batches on the torch segment mapper
+(hal_tpu_torch.ops.segmap_torch.BatchMapper) on `device`, and run the
+per-line pipeline against the mapped fragments.
 
 Liftover engine: BED/PSL coordinate projection between genomes.
 
@@ -415,9 +417,9 @@ class Liftover:
                     intervals.append(iv)
         return intervals
 
-    def _emit_chunk(self, chunk, intervals, f6, out_stream) -> None:
-        """Format a chunk through the per-line pipeline against the
-        batch-mapped fragments (one Fragments per interval)."""
+    def _chunk_cache(self, intervals, f6) -> dict:
+        """{(gs, ge): Fragments} of a chunk's distinct intervals from the
+        batched mapper's fragments (owner k is intervals[k])."""
         from hal_tpu_torch.ops.liftover_bulk import atomize_by_owner
 
         cache: dict = {}
@@ -437,20 +439,28 @@ class Liftover:
                 a, b = int(starts[k]), int(ends[k])
                 cache[iv] = sm.Fragments(s_lo[a:b], s_hi[a:b], t_lo[a:b],
                                          t_hi[a:b], rev[a:b])
-        self._frag_cache = cache
-        try:
-            for bed in chunk:
-                self._emit(bed, out_stream)
-        finally:
-            self._frag_cache = None
+        return cache
 
-    def convert_batched(self, in_stream, out_stream, bed_type: int = 0,
-                        batch_size: int = 1 << 16) -> None:
-        """Batched convert on the torch mapper: chunk k+1 is dispatched to
-        the device before chunk k is decoded and formatted, so host
-        formatting overlaps device work.  batch_size 0 maps the whole
-        input in one chunk.  Output bytes equal convert()'s."""
-        beds = list(read_bed(in_stream, bed_type))
+    def _cap_mult(self, lo: np.ndarray, hi: np.ndarray) -> int:
+        """The batched mapper's starting capacity multiple for a chunk: 4
+        (its default) for short intervals; for long ones (whole
+        chromosomes), twice the source segments they cover, so that the
+        first level fits without a run of doubling retries."""
+        covered = 0
+        for st in (self.src.top_start, self.src.bot_start):
+            if len(st) > 1:
+                n = (np.searchsorted(st, hi, side="left")
+                     - np.searchsorted(st, lo, side="right") + 1)
+                covered = max(covered, int(n.sum()))
+        need = -(-2 * covered // max(len(lo), 16))
+        return max(4, 1 << max(need - 1, 0).bit_length())
+
+    def _mapped_chunks(self, beds: list, batch_size: int):
+        """Yield (chunk, cache) for each batch_size lines of beds (0: all in
+        one chunk), cache holding every interval visit_line maps for the
+        chunk, from one BatchMapper dispatch on self.device.  Chunk k+1 is
+        dispatched before chunk k is decoded, so the caller's host work on
+        chunk k overlaps the device's work on chunk k+1."""
         if batch_size <= 0:
             batch_size = max(len(beds), 1)
         mapper = BatchMapper(self.aln, self.src_name, self.tgt_name,
@@ -465,14 +475,57 @@ class Liftover:
             if intervals:
                 lo = np.array([a for a, _ in intervals], np.int64)
                 hi = np.array([b for _, b in intervals], np.int64)
-                handle = mapper.dispatch(lo, hi)
+                handle = mapper.dispatch(lo, hi,
+                                         cap_mult=self._cap_mult(lo, hi))
             if pend is not None:
-                self._finish(mapper, pend, out_stream)
+                yield self._decoded(mapper, pend)
             pend = (chunk, intervals, handle)
         if pend is not None:
-            self._finish(mapper, pend, out_stream)
+            yield self._decoded(mapper, pend)
 
-    def _finish(self, mapper, pend, out_stream) -> None:
+    def _decoded(self, mapper, pend):
         chunk, intervals, handle = pend
         f6 = mapper.decode(handle) if handle is not None else None
-        self._emit_chunk(chunk, intervals, f6, out_stream)
+        return chunk, self._chunk_cache(intervals, f6)
+
+    def convert_batched(self, in_stream, out_stream, bed_type: int = 0,
+                        batch_size: int = 1 << 16) -> None:
+        """Batched convert on the torch mapper (_mapped_chunks): host
+        formatting of chunk k overlaps the device's mapping of chunk k+1.
+        batch_size 0 maps the whole input in one chunk.  Output bytes
+        equal convert()'s."""
+        beds = list(read_bed(in_stream, bed_type))
+        for chunk, cache in self._mapped_chunks(beds, batch_size):
+            self._frag_cache = cache
+            try:
+                for bed in chunk:
+                    self._emit(bed, out_stream)
+            finally:
+                self._frag_cache = None
+
+    def visit_lines_batched(self, beds, batch_size: int = 1 << 16,
+                            fresh_missed: bool = False):
+        """Yield visit_line(bed) for each of beds in order, the chunk's
+        intervals mapped by one BatchMapper dispatch (_mapped_chunks).
+        The results and stderr warnings equal per-line visit_line's;
+        fresh_missed warns of a missing sequence on every line that names
+        it, as a new Liftover for each line would."""
+        for chunk, cache in self._mapped_chunks(list(beds), batch_size):
+            self._frag_cache = cache
+            try:
+                for bed in chunk:
+                    if fresh_missed:
+                        self._missed = set()
+                    yield self.visit_line(bed)
+            finally:
+                self._frag_cache = None
+
+    def map_lines(self, beds, batch_size: int = 1 << 16) -> None:
+        """Map every interval visit_line maps for beds on the batched
+        mapper (_mapped_chunks) into the fragment cache, and leave it
+        filled: later visit_line and convert calls on these lines read
+        their fragments from it and map nothing."""
+        cache: dict = {}
+        for _chunk, part in self._mapped_chunks(list(beds), batch_size):
+            cache.update(part)
+        self._frag_cache = cache

@@ -598,11 +598,13 @@ def _dispatch(path: PathData, lo, hi, owner=None, cap_mult: int = 4):
 def _decode(path: PathData, pend):
     """Wait for one pending batch; on capacity overflow rerun THAT batch
     with doubled capacity.  Returns numpy int64 (src_lo, src_hi, tgt_lo,
-    tgt_hi, rev, owner) of the valid fragments."""
+    tgt_hi, rev, owner) of the valid fragments.  The capacity may grow to
+    4096 times the batch, or 1024 times a larger starting multiple."""
     F, bound, ovf, lo_d, hi_d, own, mult = pend
+    top = max(4096, mult << 10)
     while bool(ovf.item()):
         mult *= 2
-        if mult > 4096:
+        if mult > top:
             raise RuntimeError("segment-map capacity blowup")
         F, bound, ovf, _lt = _run_path(
             path, lo_d, hi_d, own, _mult_caps(path, int(lo_d.shape[0]), mult))

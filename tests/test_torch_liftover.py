@@ -299,7 +299,8 @@ def test_halLiftover_goldens_torch(golden_hal, tmp_path, golden, bed, flags):
 def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
     phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap,
-    the assembly-hub path's tools and host copies included —
+    the assembly-hub path's tools and host copies, the analysis tools, their
+    copies and the tool dispatcher included —
     imports without jax or any module of the JAX package (hal_tpu,
     hal_tpu.*) entering the process: the port keeps its own copies of the
     host code it needs."""
@@ -322,7 +323,14 @@ def test_port_imports_no_jax():
             "tools.halLodInterpolate tools.hal2assemblyHub "
             "tools.halGenerateComparisonHub blockviz tools.blockVizTest "
             "tools.blockVizBenchmark tools.halLodBenchmark tools.hal2mafMP "
-            "ops.liftover_baseline').split()}\n"
+            "ops.liftover_baseline __main__ analysis analysis.intervals "
+            "analysis.turnover_model analysis.neutral_indel ops.validate "
+            "randgen_exact tools.halValidate tools.halLiftoverStatus "
+            "tools.halSynteny tools.syntenyRates tools.halAlignedExtract "
+            "tools.halMaskExtract tools.halBranchMutations "
+            "tools.halTreeMutations tools.halTreeNIBackground "
+            "tools.halTreeNIConservation tools.estimateTurnoverParams "
+            "tools.halTreeNITurnover tools.runDotplot').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
