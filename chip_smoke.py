@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --hub-only [--hub-segments N]   # phases 1 and 8
     python3 chip_smoke.py --analysis-only [--analysis-segments N]  # 1 and 9
+    python3 chip_smoke.py --regions-only [--analysis-segments N]   # 1 and 10
 
 Phases (any failure raises and exits non-zero; nothing is caught), each
 printing its seconds:
@@ -24,8 +25,11 @@ printing its seconds:
      map-only and map + runs + wire + decode rates over 10 batches, the
      fragment count against the host sizing, 2,048 sampled owners' runs
      against the host extract_runs, every kernel launched (searchsorted
-     included), and the map and one level's lookup timed with the
-     searchsorted kernel against the paged binary search;
+     included), the map and one level's lookup timed with the
+     searchsorted kernel against the paged binary search, and the
+     compaction programs (compact, compact_packed, compact_u32_fixed with
+     decode_u32_fixed) on the first run's fragment matrix against plain
+     torch selections of the same rows, each timed;
   4. the main path through its entry points, with every kernel's launch
      count set to 0 first: bulk_runs_device at bench scale, then the
      halLiftover CLI (--device cuda --batchSize 16384) on a ~100 Mb
@@ -110,14 +114,24 @@ printing its seconds:
      halLiftover job in the launch log), and with --device cpu in a
      subprocess beside it: every file it writes, its stdout and its
      stderr equal between the two.
-Phases 4-9 (6b included) each drive a path with the launch counts set to
+  10. the region and SNP tools on phase 9's alignment (made here under
+     --regions-only): halSnps --tsv of the whole source genome against
+     three leaves, with dupes and with --noDupes; halContiguousRegions of
+     every source sequence; halSingleCopyRegionsExtract of the whole
+     source against every leaf; findRegionsExclusivelyInGroup with a
+     two-leaf ingroup; hal4dExtract --conserved of 2^10 of phase 9's
+     BED12 genes; each on --device cuda in this process under the
+     profiler and on --device cpu in a subprocess beside it, files,
+     stdout and stderr equal between the two.
+Phases 4-10 (6b included) each drive a path with the launch counts set to
 0 just before and read just after; the three Pallas kernels' ports must
 launch on every path (on the "sharded" path, on each step's first call:
 the four steps of phase 5b and the sharded column step of phase 6; on the
 "hub" path in every card job: each alignability job, the conservation
 job and halLodBenchmark's hal2maf runs, whose counts start at 0 in their
 own processes; on the "analysis" path in every card run of a lifting
-tool, runDotplot's halLiftover job included), phylop_fit on the phyloP
+tool, runDotplot's halLiftover job included; on the "regions" path in
+every card run), phylop_fit on the phyloP
 path and in the conservation job, and no kernel in a --device cpu job.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
@@ -191,6 +205,10 @@ ANALYSIS_RATE_GENES = 1 << 12
 # (~3 a Mb), so the defaults (0.05, 0.5) call no conserved interval and
 # halTreeNITurnover would lift nothing
 ANALYSIS_NI_FLAGS = ("--pval", "0.5", "--cutoff", "0.1")
+# phase 10: the region and SNP tools on phase 9's alignment, whole genome
+REGIONS_SNP_TARGETS = 3      # halSnps' leaves
+REGIONS_INGROUP = 2          # findRegionsExclusivelyInGroup's ingroup leaves
+REGIONS_GENES = 1 << 10      # hal4dExtract --conserved: analysis_genes' BED12
 # The subtree fit's 4 alternating rounds stop short of convergence on a
 # ridge of (scale, subtree scale), so its float32 result depends on
 # rounding: the JAX package's float32 program and the port's plain float32
@@ -734,6 +752,66 @@ def lookup_vs_paged(st, path, lo_d, hi_d, own_d, caps, F) -> None:
             + ms["paged"][1:]], sum(ms["paged"]) / 2, sum(ms["kernel"]) / 2))
 
 
+def compaction_checks(st, F, out_cols: int, final: int) -> None:
+    """segmap_torch's compaction programs (compact, compact_packed,
+    compact_u32_fixed at the host-sized out_cols and 8 length bits, and
+    decode_u32_fixed) on phase 3's fragment matrix, each against its plain
+    torch version (a boolean-mask selection of the same rows), exactly;
+    each timed (CUDA events) beside its plain version."""
+    import torch
+
+    valid = F[st.C_VALID] > 0
+    Fl = F.to(torch.int64)
+    ln = Fl[st.C_SHI] - Fl[st.C_SLO]
+    u32 = torch.stack([Fl[st.C_SLO], Fl[st.C_TLO], (Fl[st.C_OWN] << 9)
+                       | (ln << 1) | Fl[st.C_REV]])
+
+    def plain_u32():
+        rows = u32[:, valid]
+        return torch.where(rows >= 1 << 31, rows - (1 << 32), rows).to(
+            torch.int32)
+
+    # name: (program, its plain version, the program's row matrices and
+    # count of its result)
+    programs = {
+        "compact": (lambda: st.compact(F), lambda: (F[:6][:, valid],),
+                    lambda r: (r[:1], r[1])),
+        "compact_packed": (
+            lambda: st.compact_packed(F),
+            lambda: (F[[st.C_SLO, st.C_TLO]][:, valid],
+                     torch.stack([ln, Fl[st.C_REV], Fl[st.C_OWN]])[:, valid]
+                     .to(torch.int32)),
+            lambda r: (r[:2], r[2])),
+        "compact_u32_fixed": (lambda: st.compact_u32_fixed(F, out_cols, 8),
+                              lambda: (plain_u32(),),
+                              lambda r: (r[:1], r[1])),
+    }
+    times = []
+    for name, (prog, plain, rows_of) in programs.items():
+        res = prog()
+        got, count = rows_of(res)
+        k = int(count.item())
+        if k != final:
+            raise AssertionError("%s: count %d != %d" % (name, k, final))
+        for a, b in zip(got, plain()):
+            if not (torch.equal(a[:, :k], b) and not a[:, k:].any()):
+                raise AssertionError("%s differs from its plain version"
+                                     % name)
+        if name == "compact_u32_fixed":
+            if bool(res[2].item()):
+                raise AssertionError("compact_u32_fixed flagged overflow")
+            dec = st.decode_u32_fixed(st.wire_to_host(res[0]), k, 8)
+            M = F[:, valid].cpu().numpy().astype(np.int64)
+            for x, r in zip(dec, (st.C_SLO, st.C_SHI, st.C_TLO, st.C_THI,
+                                  st.C_REV, st.C_OWN)):
+                if not np.array_equal(x, M[r]):
+                    raise AssertionError("decode_u32_fixed row %d" % r)
+        times.append("%s %.3f ms (plain %.3f ms)"
+                     % (name, time_ms(prog), time_ms(plain)))
+    log("  compaction programs on this F (%d of %d columns valid) equal "
+        "their plain versions: %s" % (final, F.shape[1], "; ".join(times)))
+
+
 def phase_bench_scale(dev):
     import torch
 
@@ -794,6 +872,7 @@ def phase_bench_scale(dev):
         % (n_frag, int(total.item()), counts))
     check_launched(counts, "bench-scale liftover")
     lookup_vs_paged(st, path, lo_d, hi_d, own_d, caps, F)
+    compaction_checks(st, F, out_cols, final)
 
     def seq_of(p):
         return int(np.searchsorted(tg.seq_start, p, side="right")) - 1
@@ -2789,10 +2868,56 @@ def analysis_genes(g, rng, n_status: int, n_rates: int) -> tuple:
     return "".join(rows12), "".join(rows6[:n_rates])
 
 
-def run_captured(run, argv, out_path: str, err_path: str, card: str):
+def analysis_fixture(tmp: str, segments: int, what: str) -> dict:
+    """Phase 9's DNA alignment (phase 4's CLI alignment shape, seed 11,
+    `segments` to 1.5 x `segments` segments of ~2 kb a genome) in
+    tmp/analysis/aln.halz, its deepest leaf pair and the gene files of
+    analysis_genes: made by the first phase that asks, reused by phase
+    10.  Returns dict(dir, hal, aln, src, tgt, g (src's genome), bed12,
+    bed6)."""
+    from hal_tpu_torch.randgen import create_random_alignment
+    from hal_tpu_torch.storage import open_alignment, save_alignment
+
+    d = os.path.join(tmp, "analysis")
+    hal = os.path.join(d, "aln.halz")
+    made = not os.path.exists(hal)
+    t0 = time.perf_counter()
+    if made:
+        os.makedirs(d)
+        aln = create_random_alignment(
+            seed=11, max_genomes=10, min_genomes=8, mean_degree=1.5,
+            max_branch_length=0.2, min_segment_length=1900,
+            max_segment_length=2100, min_segments=segments,
+            max_segments=segments * 3 // 2, store_dna=True)
+        save_alignment(aln, hal, fmt="halz")
+    else:
+        aln = open_alignment(hal)
+    src, tgt = pick_pair(aln)
+    g = aln.open_genome(src)
+    bed12, bed6 = (os.path.join(d, x) for x in ("genes12.bed", "genes6.bed"))
+    if made:
+        for path, text in zip((bed12, bed6), analysis_genes(
+                g, np.random.default_rng(9), ANALYSIS_STATUS_GENES,
+                ANALYSIS_RATE_GENES)):
+            with open(path, "w") as f:
+                f.write(text)
+    log("%s: %d genomes of %d-%d segments with DNA (seed 11, %.1f-%.1f Mb), "
+        "%s -> %s (path %d), %s in %.1fs"
+        % (what, aln.num_genomes, segments, segments * 3 // 2,
+           min(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
+           max(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
+           src, tgt, len(aln.tree.path(src, tgt)),
+           "made" if made else "reused", time.perf_counter() - t0))
+    return dict(dir=d, hal=hal, aln=aln, src=src, tgt=tgt, g=g,
+                bed12=bed12, bed6=bed6)
+
+
+def run_captured(run, argv, out_path: str, err_path: str, card: str,
+                 top: list | None = None):
     """run(argv) in this process with its stdout and stderr in files, under
     torch.profiler when card is a CUDA device: (seconds, device ms or None
-    where the profiler recorded no device time)."""
+    where the profiler recorded no device time).  top, if given, receives
+    the three device kernels or copies of most time as (name, ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2800,16 +2925,24 @@ def run_captured(run, argv, out_path: str, err_path: str, card: str):
     activities = [ProfilerActivity.CPU]
     if card == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with open(out_path, "w") as fo, open(err_path, "w") as fe, \
-            contextlib.redirect_stdout(fo), contextlib.redirect_stderr(fe), \
-            profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        run(argv)
-        if card == "cuda":
-            torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA) / 1e3
+    # the profiler starts and stops outside the redirection: what it
+    # writes itself is not the tool's stderr
+    with profile(activities=activities) as prof:
+        with open(out_path, "w") as fo, open(err_path, "w") as fe, \
+                contextlib.redirect_stdout(fo), \
+                contextlib.redirect_stderr(fe):
+            t0 = time.perf_counter()
+            run(argv)
+            if card == "cuda":
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+    rows = sorted(((e.key, e.self_device_time_total / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    if top is not None:
+        top.extend(rows[:3])
+    dev = sum(ms for _, ms in rows)
     return sec, (dev or None)
 
 
@@ -2831,38 +2964,14 @@ def phase_analysis(tmp: str, segments: int = ANALYSIS_SEGMENTS,
     import shutil
 
     from hal_tpu_torch.ops import kernels as K
-    from hal_tpu_torch.randgen import create_random_alignment
-    from hal_tpu_torch.storage import save_alignment
     from hal_tpu_torch.tools import (halLiftoverStatus, halSynteny,
                                      halTreeNITurnover, halValidate,
                                      syntenyRates)
 
     t_phase = time.perf_counter()
-    d = os.path.join(tmp, "analysis")
-    os.makedirs(d)
-    t0 = time.perf_counter()
-    aln = create_random_alignment(
-        seed=11, max_genomes=10, min_genomes=8, mean_degree=1.5,
-        max_branch_length=0.2, min_segment_length=1900,
-        max_segment_length=2100, min_segments=segments,
-        max_segments=segments * 3 // 2, store_dna=True)
-    hal = os.path.join(d, "aln.halz")
-    save_alignment(aln, hal, fmt="halz")
-    src, tgt = pick_pair(aln)
-    g = aln.open_genome(src)
-    bed12, bed6 = (os.path.join(d, x) for x in ("genes12.bed", "genes6.bed"))
-    for path, text in zip((bed12, bed6), analysis_genes(
-            g, np.random.default_rng(9), ANALYSIS_STATUS_GENES,
-            ANALYSIS_RATE_GENES)):
-        with open(path, "w") as f:
-            f.write(text)
-    log("phase 9 analysis: %d genomes of %d-%d segments with DNA (seed 11, "
-        "%.1f-%.1f Mb), %s -> %s (path %d), in %.1fs"
-        % (aln.num_genomes, segments, segments * 3 // 2,
-           min(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
-           max(aln.open_genome(n).length for n in aln.genome_names()) / 1e6,
-           src, tgt, len(aln.tree.path(src, tgt)),
-           time.perf_counter() - t0))
+    fx = analysis_fixture(tmp, segments, "phase 9 analysis")
+    d, hal, aln, src, tgt, g, bed12, bed6 = (fx[k] for k in (
+        "dir", "hal", "aln", "src", "tgt", "g", "bed12", "bed6"))
     ni = os.path.join(d, "ni")
     chrom = g.seq_names[0]
     jobs = {  # name: (tool module, arguments given the output prefix)
@@ -2994,6 +3103,118 @@ def phase_analysis(tmp: str, segments: int = ANALYSIS_SEGMENTS,
     return total
 
 
+def phase_regions(tmp: str, segments: int = ANALYSIS_SEGMENTS,
+                  card: str = "cuda") -> dict:
+    """The region and SNP tools on phase 9's alignment (analysis_fixture):
+    halSnps --tsv of the whole source genome against REGIONS_SNP_TARGETS
+    leaves, with dupes and with --noDupes; halContiguousRegions of every
+    source sequence to the pair's target; halSingleCopyRegionsExtract of
+    the whole source against every leaf (its self-map up to the root);
+    findRegionsExclusivelyInGroup with a REGIONS_INGROUP-leaf ingroup and
+    all outgroup leaves but one allowed;
+    hal4dExtract --conserved of the first REGIONS_GENES BED12 genes.  Each
+    runs on --device card in this process under the profiler (its seconds
+    and the card's device time) and on --device cpu in a subprocess beside
+    it; every file it writes, its stdout and its stderr must be equal
+    between the two, each card run must launch every Pallas port and no
+    cpu run any kernel.  Returns the kernels' launches summed over the
+    card runs."""
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.tools import (findRegionsExclusivelyInGroup,
+                                     hal4dExtract, halContiguousRegions,
+                                     halSingleCopyRegionsExtract, halSnps)
+
+    t_phase = time.perf_counter()
+    fx = analysis_fixture(tmp, segments, "phase 10 regions")
+    aln, hal, src, tgt = fx["aln"], fx["hal"], fx["src"], fx["tgt"]
+    d = os.path.join(tmp, "regions")
+    os.makedirs(d)
+    others = [tgt] + [n for n in aln.genome_names() if aln.tree.is_leaf(n)
+                      and n not in (src, tgt)]
+    snp_targets = ",".join(others[:REGIONS_SNP_TARGETS])
+    ingroup = ",".join(others[:REGIONS_INGROUP])
+    # at most all outgroup leaves but one: at the fixture's short branches
+    # nearly every base aligns to every leaf, and with 0 nothing is left
+    max_out = str(max(len(others) - REGIONS_INGROUP - 1, 0))
+    genes = os.path.join(d, "genes4d.bed")
+    with open(fx["bed12"]) as f, open(genes, "w") as out:
+        out.writelines(f.readlines()[:REGIONS_GENES])
+    log("  %s: halSnps against %s, ingroup %s (--maxOutgroupGenomes %s), "
+        "%d genes, %d sequences" % (src, snp_targets, ingroup, max_out,
+                                    REGIONS_GENES, fx["g"].num_sequences))
+    jobs = {  # name: (tool module, arguments given the output prefix)
+        "halSnps": (halSnps, lambda o: [hal, src, snp_targets, "--tsv",
+                                        o + ".tsv"]),
+        "halSnps_noDupes": (halSnps, lambda o: [
+            hal, src, snp_targets, "--tsv", o + ".tsv", "--noDupes"]),
+        "halContiguousRegions": (halContiguousRegions,
+                                 lambda o: [hal, src, tgt]),
+        "halSingleCopyRegionsExtract": (halSingleCopyRegionsExtract,
+                                        lambda o: [hal, src]),
+        "findRegionsExclusivelyInGroup": (
+            findRegionsExclusivelyInGroup,
+            lambda o: [hal, src, ingroup, "--maxOutgroupGenomes", max_out]),
+        "hal4dExtract": (hal4dExtract, lambda o: [
+            hal, src, genes, o + ".bed", "--conserved"]),
+    }
+    total, rows = {}, []
+    with port_tools(d) as start:
+        cpu = {name: start(mod.__name__.rsplit(".", 1)[1],
+                           args(os.path.join(d, name + "_cpu"))
+                           + ["--device", "cpu"], name + "_cpu",
+                           {"OMP_NUM_THREADS": "1"})
+               for name, (mod, args) in jobs.items()}
+        for name, (mod, args) in jobs.items():
+            prefix = os.path.join(d, name + "_card")
+            K.reset_launches()
+            top = []
+            sec, dev = run_captured(mod.run, args(prefix) + [
+                "--device", card], prefix + ".out", prefix + ".err", card,
+                top)
+            counts = K.launches()
+            check_launched(counts, "regions %s --device %s" % (name, card))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            rows.append((name, sec, dev, counts, top))
+        refs = {name: wait() for name, wait in cpu.items()}
+
+    def outputs(name, run):
+        base = os.path.join(d, "%s_%s" % (name, run))
+        got = {}
+        for x in (".tsv", ".bed", ".out", ".err"):
+            if os.path.exists(base + x):
+                with open(base + x, "rb") as f:
+                    got[x] = f.read()
+        return got
+
+    for name, sec, dev, counts, top in rows:
+        want, got = outputs(name, "cpu"), outputs(name, "card")
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            raise AssertionError(
+                "regions %s: --device %s differs from --device cpu in %s; "
+                "stderr %r against %r" % (name, card, bad,
+                                          got.get(".err", b"")[-2000:],
+                                          want.get(".err", b"")[-2000:]))
+        if not any(v for k, v in want.items() if k != ".err"):
+            raise AssertionError("regions %s wrote nothing" % name)
+        ref_sec, _, ref_log = refs[name]
+        no_launches(launch_log(ref_log), "regions %s --device cpu" % name)
+        log("  %s: %s; --device %s %.2fs (device %s), --device cpu %.2fs "
+            "(concurrent); launches %s"
+            % (name, ", ".join("%s %d lines" % (k, v.count(b"\n"))
+                               for k, v in sorted(want.items())),
+               card, sec, "%.2f ms, %.2f%% of the run" % (dev, dev / sec / 10)
+               if dev else "time not measured", ref_sec,
+               {k: v for k, v in counts.items() if v}))
+        log("    device top: %s" % "; ".join("%s %.3f ms" % (k[:70], ms)
+                                             for k, ms in top))
+    log("  regions path launches (the card runs' sum): %s" % total)
+    log("phase 10 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3010,7 +3231,11 @@ def main(argv=None) -> int:
                          "lines")
     ap.add_argument("--analysis-segments", type=int,
                     default=ANALYSIS_SEGMENTS,
-                    help="fewest segments a genome of phase 9's alignment")
+                    help="fewest segments a genome of phase 9's alignment "
+                         "(phase 10's too)")
+    ap.add_argument("--regions-only", action="store_true",
+                    help="phase 1, then phase 10 alone; prints no result "
+                         "lines")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "hal_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -3039,6 +3264,12 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase_analysis(tmp, segments=args.analysis_segments)
         log("--analysis-only: phases 1 and 9 passed in %.1fs; no result "
+            "lines" % (time.perf_counter() - t_start))
+        return 0
+    if args.regions_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_regions(tmp, segments=args.analysis_segments)
+        log("--regions-only: phases 1 and 10 passed in %.1fs; no result "
             "lines" % (time.perf_counter() - t_start))
         return 0
     t0 = time.perf_counter()
@@ -3073,6 +3304,8 @@ def main(argv=None) -> int:
                                  os.path.join(tmp, "small.mod"))
         paths["analysis"] = phase_analysis(tmp,
                                            segments=args.analysis_segments)
+        paths["regions"] = phase_regions(tmp,
+                                         segments=args.analysis_segments)
     for name in PALLAS_PORTS:
         rec[name]["launches"] = counts[name]
     rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]

@@ -46,7 +46,6 @@ import torch
 
 from hal_tpu_torch.alignment import Alignment
 from hal_tpu_torch.constants import NULL_INDEX
-from hal_tpu_torch.ops import kernels
 from hal_tpu_torch.ops import segmap_torch as st
 from hal_tpu_torch.ops import tables
 
@@ -557,18 +556,12 @@ def _program_body(levels, lo, hi, caps, meta, out_cols: int):
             # selfring in a genome with no paralogy: nothing survives
             F[st.C_VALID] = 0
     # compact [s_lo, t_lo, len, rev, key] into a static (5, out_cols)
-    valid = F[st.C_VALID] > 0
-    pos = kernels.cumsum_i32(valid.to(torch.int32)) - 1
-    total = (pos[-1] + 1 if valid.shape[0] > 0
-             else torch.zeros((), dtype=torch.int32, device=dev))
-    idx = st.spare_index(valid & (pos < out_cols), pos, out_cols)
+    idx, total = st._compact_slots(F, out_cols)
     rows = torch.stack([F[st.C_SLO], F[st.C_TLO],
                         F[st.C_SHI] - F[st.C_SLO], F[st.C_REV],
                         F[st.C_OWN]], dim=0)
-    out = torch.zeros((5, out_cols + st.spare_width(idx.shape[0])), dtype=dt,
-                      device=dev)
-    out.index_copy_(1, idx, rows)
-    return out[:, :out_cols], total, overflow | (total > out_cols)
+    return (st._scatter_cols(rows, idx, out_cols), total,
+            overflow | (total > out_cols))
 
 
 # the JAX package's jit entry of one program; torch runs it eagerly

@@ -36,7 +36,7 @@ from hal_tpu_torch.alignment import Alignment
 from hal_tpu_torch.genome import GenomeArrays
 from hal_tpu_torch.io.bed import BedLine, PSLInfo, read_bed
 from hal_tpu_torch.ops import segmap_host as sm
-from hal_tpu_torch.ops.segmap_torch import BatchMapper
+from hal_tpu_torch.ops.segmap_torch import BatchMapper, start_cap_mult
 
 
 @dataclass
@@ -157,10 +157,11 @@ class Liftover:
         self.psl_with_name = psl_with_name
         self.coalescence_limit = coalescence_limit
         self._missed: set[str] = set()
-        # batched mode: {(gs, ge): Fragments} filled by convert_batched so
-        # lift_interval skips the per-line map_source call (the device bulk
-        # mapper produced the fragments) — output bytes stay identical
-        # because extract_runs canonicalizes fragment order itself
+        # batched mode: {(gs, ge): Fragments} filled by the batched entries
+        # so lift_interval skips the per-line map_source call (the device
+        # bulk mapper produced the fragments; a miss raises) — output bytes
+        # stay identical because extract_runs canonicalizes fragment order
+        # itself
         self._frag_cache: dict | None = None
         self.device = torch.device(device)
 
@@ -171,10 +172,15 @@ class Liftover:
         gs = int(self.src.seq_start[seq_index]) + bed.start
         ge = int(self.src.seq_start[seq_index]) + bed.end
         flip = bed.strand == "-"
-        frags = None
         if self._frag_cache is not None:
+            # batched mode maps nothing on the host: a line the batch did
+            # not enumerate (_intervals) is a fault of the caller
             frags = self._frag_cache.get((gs, ge))
-        if frags is None:
+            if frags is None:
+                raise RuntimeError(
+                    "interval %s:%d-%d of %s was not mapped by the batched "
+                    "mapper" % (bed.chrom, bed.start, bed.end, self.src_name))
+        else:
             frags = sm.map_source(self.aln, self.src_name, np.array([gs]), np.array([ge]),
                                   self.tgt_name, do_dupes=self.traverse_dupes,
                                   coalescence_limit=self.coalescence_limit)
@@ -441,24 +447,11 @@ class Liftover:
                                          t_hi[a:b], rev[a:b])
         return cache
 
-    def _cap_mult(self, lo: np.ndarray, hi: np.ndarray) -> int:
-        """The batched mapper's starting capacity multiple for a chunk: 4
-        (its default) for short intervals; for long ones (whole
-        chromosomes), twice the source segments they cover, so that the
-        first level fits without a run of doubling retries."""
-        covered = 0
-        for st in (self.src.top_start, self.src.bot_start):
-            if len(st) > 1:
-                n = (np.searchsorted(st, hi, side="left")
-                     - np.searchsorted(st, lo, side="right") + 1)
-                covered = max(covered, int(n.sum()))
-        need = -(-2 * covered // max(len(lo), 16))
-        return max(4, 1 << max(need - 1, 0).bit_length())
-
     def _mapped_chunks(self, beds: list, batch_size: int):
         """Yield (chunk, cache) for each batch_size lines of beds (0: all in
         one chunk), cache holding every interval visit_line maps for the
-        chunk, from one BatchMapper dispatch on self.device.  Chunk k+1 is
+        chunk, from one BatchMapper dispatch on self.device (paralogy
+        branches as map_source's, host_paralogies).  Chunk k+1 is
         dispatched before chunk k is decoded, so the caller's host work on
         chunk k overlaps the device's work on chunk k+1."""
         if batch_size <= 0:
@@ -466,7 +459,7 @@ class Liftover:
         mapper = BatchMapper(self.aln, self.src_name, self.tgt_name,
                              do_dupes=self.traverse_dupes,
                              coalescence_limit=self.coalescence_limit,
-                             device=self.device)
+                             host_paralogies=True, device=self.device)
         pend = None  # (chunk, intervals, handle)
         for pos in range(0, len(beds), batch_size):
             chunk = beds[pos:pos + batch_size]
@@ -475,8 +468,8 @@ class Liftover:
             if intervals:
                 lo = np.array([a for a, _ in intervals], np.int64)
                 hi = np.array([b for _, b in intervals], np.int64)
-                handle = mapper.dispatch(lo, hi,
-                                         cap_mult=self._cap_mult(lo, hi))
+                handle = mapper.dispatch(
+                    lo, hi, cap_mult=start_cap_mult(self.src, lo, hi))
             if pend is not None:
                 yield self._decoded(mapper, pend)
             pend = (chunk, intervals, handle)

@@ -143,9 +143,17 @@ class PathData:
     @classmethod
     def build(cls, aln: Alignment, src: str, tgt: str, do_dupes: bool = True,
               dtype=None, coalescence_limit: str | None = None,
-              min_length: int = 0, *, device) -> "PathData":
+              min_length: int = 0, host_paralogies: bool = False, *,
+              device) -> "PathData":
         """dtype: the JAX package's coordinate dtype as numpy (np.int32,
-        np.uint32 or np.int64); by default picked as segmap_jax does."""
+        np.uint32 or np.int64); by default picked as segmap_jax does.
+
+        host_paralogies: paralogy branch k expands rings only at its first
+        down level (the paralogs of chain[k - 1]) and brings them down to
+        the MRCA without rings, as segmap_host._map_paralogies does.  The
+        default keeps segmap_jax's ring expansion at every down hop of a
+        branch, which adds base pairs that map_source lacks once the chain
+        above the MRCA holds three genomes (ROADMAP §3)."""
         device = torch.device(device)
         tree = aln.tree
         mrca = tree.lca(src, tgt)
@@ -189,7 +197,8 @@ class PathData:
         if do_dupes and limit != mrca:
             for k in range(1, len(chain)):
                 up = up_level(chain[k - 1])
-                downs = tuple(down_level(chain[j + 1], chain[j], True)
+                downs = tuple(down_level(chain[j + 1], chain[j],
+                                         j == k - 1 or not host_paralogies)
                               for j in range(k - 1, -1, -1))
                 para.append((up, downs))
         return cls(levels=tuple(levels), n_up=n_up, para=tuple(para),
@@ -485,14 +494,80 @@ def _final_bound(F):
     return torch.max(torch.where(valid, idx + 1, 0))
 
 
-def _run_path(path: PathData, lo, hi, owner, caps, level_xform=None):
+# the most distinct values _OrderKey's mixed-radix key may span
+_KEY_LIMIT = 1 << 62
+
+
+def _parents_as_owner(F):
+    """F with its owner row replaced by the column index, so that the owner
+    row of what _split_hop or _ring_expand makes of it names each output
+    column's parent column."""
+    F = F.clone()
+    F[C_OWN] = torch.arange(F.shape[1], dtype=F.dtype, device=F.device)
+    return F
+
+
+class _OrderKey:
+    """_run_path's order hook: an int64 order key per column, so that one
+    owner's valid columns, stable-sorted by key, come in map_source's order
+    before its final dedup and atomize (paths without paralogy branches).
+
+    Why: map_source lists a fragment's split pieces in place (parent-
+    major), as the device does, but its paralog_expand lists every
+    original, then every ring's first members, then the second ones (step-
+    major), where _ring_expand appends each piece's members after all the
+    originals.  Its per-level dedup keeps first occurrences, which commutes
+    with both expansions.  So its order is the lexicographic order of
+    (s_m, ..., s_1, device order), s_l being a column's step at the l-th
+    ring level (0 for an original, k + 1 for its ring's k-th CSR member,
+    the ring walk's order).  The key packs the steps in mixed radix, the
+    last ring level most significant, and is re-ranked densely before the
+    product of radices would pass _KEY_LIMIT.
+
+    Before each hop the owner row holds the parent column indices; after
+    it the hook gathers the owners and keys through them."""
+
+    def __init__(self, owner):
+        self.own = owner.to(torch.int64)
+        self.key = torch.zeros_like(self.own)
+        self.radix = 1
+
+    def split(self, F):
+        par = F[C_OWN].long()
+        self.own, self.key = self.own[par], self.key[par]
+
+    def ring(self, level, F, ring_counts, split_cap, ring_cap):
+        par = F[C_OWN, split_cap:].long()
+        rc = ring_counts.to(torch.int32)
+        first = (kernels.cumsum_i32(rc) - rc).to(torch.int64)
+        step = torch.arange(1, ring_cap + 1, dtype=torch.int64,
+                            device=F.device) - first[par]
+        if self.radix > _KEY_LIMIT // level.max_ring:
+            self.key = torch.unique(self.key, return_inverse=True)[1]
+            self.radix = (int(self.key.max().item()) + 1
+                          if self.key.numel() else 1)
+        self.own = torch.cat([self.own, self.own[par]])
+        self.key = torch.cat([self.key, self.key[par] + step * self.radix])
+        self.radix *= level.max_ring
+
+
+def _run_path(path: PathData, lo, hi, owner, caps, level_xform=None,
+              order: _OrderKey | None = None):
     """Run the whole path; returns the packed (8, cap) fragment matrix, the
     last-valid bound, the overflow flag and per-level (split, ring) totals.
     caps is consumed in traversal order, as segmap_jax._run_path.
 
     level_xform: optional Level -> Level hook applied as each level is
     consumed; the table-sharded step (parallel.sharded) gathers a level's
-    tables with it right before the hop."""
+    tables with it right before the hop.
+
+    order: an _OrderKey(owner) that follows every hop; its key then
+    orders each owner's columns as map_source does (BatchMapper.dispatch(
+    ordered=True)).  Paths with paralogy branches refuse it."""
+    if order is not None and path.para:
+        raise ValueError("map_source's fragment order is not reproduced on "
+                         "a path with paralogy branches (a coalescence "
+                         "limit above the MRCA)")
     n = lo.shape[0]
     dt = lo.dtype
     ml = path.min_length
@@ -514,15 +589,23 @@ def _run_path(path: PathData, lo, hi, owner, caps, level_xform=None):
         if level_xform is not None:
             level = level_xform(level)
         split_cap, ring_cap = next_cap()
+        if order is not None:
+            F = _parents_as_owner(F)
         F, ring_counts, ring_offsets, stot, ov1 = _split_hop(level, F,
                                                              split_cap, ml)
         overflow = overflow | ov1
+        if order is not None:
+            order.split(F)
         rv = torch.zeros((), dtype=torch.int32, device=F.device)
         if level.kind == "down" and level.max_ring > 0:
+            if order is not None:
+                F = _parents_as_owner(F)
             F, rtot, ov2 = _ring_expand(level, F, ring_counts, ring_offsets,
                                         ring_cap)
             overflow = overflow | ov2
             rv = rtot.to(torch.int32)
+            if order is not None:
+                order.ring(level, F, ring_counts, split_cap, ring_cap)
         level_totals.append(torch.stack([stot.to(torch.int32), rv]))
         return F
 
@@ -543,10 +626,31 @@ def _run_path(path: PathData, lo, hi, owner, caps, level_xform=None):
     for level in path.levels[path.n_up:]:
         F = apply_level(level, F)
 
+    if order is not None:
+        F[C_OWN] = order.own.to(dt)
     bound = _final_bound(F)
     return F, bound, overflow, (
         torch.stack(level_totals) if level_totals
         else torch.zeros((0, 2), dtype=torch.int32, device=lo.device))
+
+
+def start_cap_mult(genome, lo, hi) -> int:
+    """The batched mapper's starting capacity multiple for intervals
+    [lo, hi) of the source genome: 4 (its default) for short intervals;
+    for long ones (whole sequences, 2^20-base windows), twice the source
+    segments they cover, so that the first level fits without a run of
+    doubling retries (_decode gives up at 4,096 times the batch from the
+    default start)."""
+    lo = np.asarray(lo, np.int64)
+    hi = np.asarray(hi, np.int64)
+    covered = 0
+    for starts in (genome.top_start, genome.bot_start):
+        if len(starts) > 1:
+            n = (np.searchsorted(starts, hi, side="left")
+                 - np.searchsorted(starts, lo, side="right") + 1)
+            covered = max(covered, int(n.sum()))
+    need = -(-2 * covered // max(len(lo), 16))
+    return max(4, 1 << max(need - 1, 0).bit_length())
 
 
 def _mult_caps(path: PathData, n: int, mult: int):
@@ -574,41 +678,58 @@ def coords(path: PathData, x) -> torch.Tensor:
     return torch.from_numpy(np.asarray(x).astype(np_dt)).to(path.device)
 
 
-def _fragments(F, bound):
+def _fragments(F, bound, key=None):
     """Valid columns of F[:, :bound] as int64 numpy rows (s_lo, s_hi, t_lo,
-    t_hi, rev, owner)."""
+    t_hi, rev, owner); with an _OrderKey's key, stable-sorted by (owner,
+    key) on F's device."""
     k = int(bound.item())
-    M = F[:, :k].cpu().numpy().astype(np.int64)
-    M = M[:, M[C_VALID].astype(bool)]
+    if key is None:
+        M = F[:, :k].cpu().numpy().astype(np.int64)
+        M = M[:, M[C_VALID].astype(bool)]
+    else:
+        cols = torch.nonzero(F[C_VALID, :k] > 0).flatten()
+        cols = cols[torch.sort(key[cols], stable=True).indices]
+        cols = cols[torch.sort(F[C_OWN, cols], stable=True).indices]
+        M = F[:, cols].cpu().numpy().astype(np.int64)
     return (M[C_SLO], M[C_SHI], M[C_TLO], M[C_THI], M[C_REV], M[C_OWN])
 
 
-def _dispatch(path: PathData, lo, hi, owner=None, cap_mult: int = 4):
+def _run_batch(path: PathData, lo_d, hi_d, own, mult: int, ordered: bool):
+    """One _run_path of a batch at capacity multiple mult: (F, bound,
+    overflow, order key or None)."""
+    order = _OrderKey(own) if ordered else None
+    F, bound, ovf, _lt = _run_path(path, lo_d, hi_d, own,
+                                   _mult_caps(path, int(lo_d.shape[0]), mult),
+                                   order=order)
+    return F, bound, ovf, None if order is None else order.key
+
+
+def _dispatch(path: PathData, lo, hi, owner=None, cap_mult: int = 4,
+              ordered: bool = False):
     """Queue the device work for one batch; returns a pending handle."""
     lo_d = coords(path, lo)
     hi_d = coords(path, hi)
     n = int(lo_d.shape[0])
     own = (torch.arange(n, dtype=path.dtype, device=path.device)
            if owner is None else coords(path, owner))
-    F, bound, ovf, _lt = _run_path(path, lo_d, hi_d, own,
-                                   _mult_caps(path, n, cap_mult))
-    return (F, bound, ovf, lo_d, hi_d, own, cap_mult)
+    return (*_run_batch(path, lo_d, hi_d, own, cap_mult, ordered),
+            lo_d, hi_d, own, cap_mult, ordered)
 
 
 def _decode(path: PathData, pend):
     """Wait for one pending batch; on capacity overflow rerun THAT batch
     with doubled capacity.  Returns numpy int64 (src_lo, src_hi, tgt_lo,
-    tgt_hi, rev, owner) of the valid fragments.  The capacity may grow to
-    4096 times the batch, or 1024 times a larger starting multiple."""
-    F, bound, ovf, lo_d, hi_d, own, mult = pend
+    tgt_hi, rev, owner) of the valid fragments (an ordered batch's sorted
+    by owner, each owner's in map_source's order).  The capacity may grow
+    to 4096 times the batch, or 1024 times a larger starting multiple."""
+    F, bound, ovf, key, lo_d, hi_d, own, mult, ordered = pend
     top = max(4096, mult << 10)
     while bool(ovf.item()):
         mult *= 2
         if mult > top:
             raise RuntimeError("segment-map capacity blowup")
-        F, bound, ovf, _lt = _run_path(
-            path, lo_d, hi_d, own, _mult_caps(path, int(lo_d.shape[0]), mult))
-    return _fragments(F, bound)
+        F, bound, ovf, key = _run_batch(path, lo_d, hi_d, own, mult, ordered)
+    return _fragments(F, bound, key)
 
 
 class BatchMapper:
@@ -618,14 +739,22 @@ class BatchMapper:
 
     def __init__(self, aln: Alignment, src: str, tgt: str,
                  do_dupes: bool = True, coalescence_limit: str | None = None,
-                 min_length: int = 0, *, device):
+                 min_length: int = 0, host_paralogies: bool = False, *,
+                 device):
         self.path = PathData.build(aln, src, tgt, do_dupes=do_dupes,
                                    coalescence_limit=coalescence_limit,
-                                   min_length=min_length, device=device)
+                                   min_length=min_length,
+                                   host_paralogies=host_paralogies,
+                                   device=device)
         self.dtype = self.path.dtype
 
-    def dispatch(self, lo, hi, owner=None, cap_mult: int = 4):
-        return _dispatch(self.path, lo, hi, owner, cap_mult)
+    def dispatch(self, lo, hi, owner=None, cap_mult: int = 4,
+                 ordered: bool = False):
+        """ordered: decode returns the fragments sorted by owner, each
+        owner's in map_source's order before its atomize, duplicates
+        included (_run_path's _OrderKey hook; paths without paralogy
+        branches)."""
+        return _dispatch(self.path, lo, hi, owner, cap_mult, ordered)
 
     def decode(self, pend):
         return _decode(self.path, pend)
@@ -636,6 +765,87 @@ def map_batch(path: PathData, lo, hi, owner=None, cap_mult: int = 4):
     (src_lo, src_hi, tgt_lo, tgt_hi, rev, owner) of valid fragments
     (un-atomized, un-deduped)."""
     return _decode(path, _dispatch(path, lo, hi, owner, cap_mult))
+
+
+# --------------------------------------------------------------------------
+# compaction programs (segmap_jax._compact_jit, _compact_packed_jit,
+# _compact_u32_fixed_jit); nothing on the main path calls them.  Their
+# slots and scatter are also column_torch._program_body's compaction.
+# --------------------------------------------------------------------------
+
+def _compact_slots(F, n_out: int):
+    """(slot index per column, valid total) of a scatter-compaction of F's
+    valid columns into n_out slots: a valid column's slot is its rank
+    among the valid ones (the prefix sum on kernels.cumsum_i32); the rest,
+    and ranks past n_out, go to a spare region past n_out (spare_index)."""
+    valid = F[C_VALID] > 0
+    if valid.shape[0] == 0:
+        z = torch.zeros(0, dtype=torch.int64, device=F.device)
+        return z, torch.zeros((), dtype=torch.int32, device=F.device)
+    pos = kernels.cumsum_i32(valid.to(torch.int32)) - 1
+    total = pos[-1] + 1
+    return spare_index(valid & (pos < n_out), pos, n_out), total
+
+
+def _scatter_cols(rows, idx, n_out: int):
+    """rows (r, c) scattered to columns idx of a zero (r, n_out + spare)
+    matrix, cut to n_out columns."""
+    out = rows.new_zeros((rows.shape[0], n_out + spare_width(rows.shape[1])))
+    out.index_copy_(1, idx, rows)
+    return out[:, :n_out]
+
+
+def compact(F):
+    """segmap_jax._compact_jit: F's valid columns scatter-compacted to the
+    front of a (6, cap) matrix (the valid and aux rows dropped) and the
+    valid count (int32)."""
+    idx, total = _compact_slots(F, F.shape[1])
+    return _scatter_cols(F[:6], idx, F.shape[1]), total
+
+
+def compact_packed(F):
+    """segmap_jax._compact_packed_jit: (coords (2, cap) [s_lo, t_lo] in F's
+    dtype, meta (3, cap) int32 [len, rev, owner], count).  Reconstruct
+    with s_hi = s_lo + len, t_hi = t_lo + len."""
+    idx, total = _compact_slots(F, F.shape[1])
+    coords = torch.stack([F[C_SLO], F[C_TLO]], dim=0)
+    meta = torch.stack([F[C_SHI] - F[C_SLO], F[C_REV], F[C_OWN]],
+                       dim=0).to(torch.int32)
+    return (_scatter_cols(coords, idx, F.shape[1]),
+            _scatter_cols(meta, idx, F.shape[1]), total)
+
+
+def compact_u32_fixed(F, out_cols: int, len_bits: int):
+    """segmap_jax._compact_u32_fixed_jit: three u32 rows [s_lo, t_lo,
+    owner << (len_bits + 1) | len << 1 | rev] of the valid columns
+    compacted into a static (3, out_cols) matrix, as int32 bit patterns
+    (wire_to_host gives the JAX package's np.uint32), plus the count and
+    the overflow flag (more than out_cols rows, or a row whose len or owner
+    the packing cannot hold).  u32 arithmetic is emulated in int64."""
+    M = _U32
+    idx, total = _compact_slots(F, out_cols)
+    Fl = F.to(torch.int64)
+    ln = (Fl[C_SHI] - Fl[C_SLO]) & M
+    own = Fl[C_OWN] & M
+    packed = ((own << (len_bits + 1)) | (ln << 1) | (Fl[C_REV] & 1)) & M
+    rows = torch.stack([Fl[C_SLO] & M, Fl[C_TLO] & M, packed], dim=0)
+    rows = torch.where(rows >= _BIAS, rows - (1 << 32), rows).to(torch.int32)
+    valid = F[C_VALID] > 0
+    bad = valid & ((ln >= (1 << len_bits)) | (own >= (1 << (31 - len_bits))))
+    ovf = (total > out_cols) | bad.any()
+    return _scatter_cols(rows, idx, out_cols), total, ovf
+
+
+def decode_u32_fixed(M: np.ndarray, count: int, len_bits: int):
+    """Host-side decode of compact_u32_fixed output (as np.uint32,
+    wire_to_host): returns int64 (s_lo, s_hi, t_lo, t_hi, rev, owner)
+    numpy arrays (segmap_jax.decode_u32_fixed)."""
+    M = np.asarray(M)[:, :count].astype(np.int64)
+    s_lo, t_lo, packed = M[0], M[1], M[2]
+    rev = packed & 1
+    ln = (packed >> 1) & ((1 << len_bits) - 1)
+    own = packed >> (len_bits + 1)
+    return s_lo, s_lo + ln, t_lo, t_lo + ln, rev, own
 
 
 # --------------------------------------------------------------------------

@@ -365,6 +365,31 @@ def test_visit_lines_batched_fresh_missed(fixture):
     assert err.getvalue().count("Unable to find sequence chrMissing") == 2
 
 
+@pytest.mark.parametrize("out_psl", [False, True])
+def test_visit_lines_batched_maps_nothing_on_the_host(fixture, monkeypatch,
+                                                      out_psl):
+    """visit_lines_batched with the port's segmap_host.map_source refused:
+    every interval of every line (BED12 blocks, the PSL path's expanded
+    lines, lines it skips) comes from the batched mapper, with per-line
+    visit_line's results and warnings."""
+    aln, src, tgt = fixture["aln"], fixture["src"], fixture["tgt"]
+    beds = _beds(fixture["bed12_lift"])
+    want, want_err = _per_line(Liftover(aln, src, tgt, out_psl=out_psl,
+                                        device="cpu"), beds)
+    from hal_tpu_torch.ops import segmap_host
+
+    def refuse(*a, **k):
+        raise AssertionError("host map_source called")
+
+    monkeypatch.setattr(segmap_host, "map_source", refuse)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        got = list(Liftover(aln, src, tgt, out_psl=out_psl, device="cpu")
+                   .visit_lines_batched(copy.deepcopy(beds), 7))
+    assert got == want and err.getvalue() == want_err
+    assert sum(len(x) for x in got) > len(beds) // 2
+
+
 def test_map_lines_then_convert_maps_nothing(fixture, monkeypatch):
     """After map_lines, convert of those lines reads every interval from
     the fragment cache (the host mapper is never called) and writes

@@ -1,8 +1,9 @@
 """The port's copies of hal_tpu's host modules (hal_tpu_torch.{alignment,
 genome, tree, dna, randgen, storage, io.bed, io.maf_io, io.wiggle, native,
 ops.segmap_host, ops.liftover, ops.liftover_bulk, ops.column, ops.poscache,
-ops.column_native, tools} and the host half of ops.column_torch) against
-their originals on seeded fixtures.  Tolerance: exact equality (arrays,
+ops.column_native, tools} and the host half of ops.column_torch, and the
+functions of the export and mutation tools) against their originals on
+seeded fixtures.  Tolerance: exact equality (arrays,
 trees, records and bytes)."""
 
 import dataclasses
@@ -655,6 +656,79 @@ def test_analyze_branch_equals_original(opts):
         assert dataclasses.asdict(got) == dataclasses.asdict(want), name
         events += len(want.events)
     assert events or opts.get("just_subs")
+
+
+@pytest.mark.parametrize("fn", ["genome_to_paf", "stats_row", "clean",
+                                "count_block", "parse_coverage"])
+def test_export_tool_functions_equal_original(tmp_path, fn):
+    """The functions of the host-only export and mutation tools that take
+    plain inputs: hal2paf.genome_to_paf (every child, both name modes),
+    halSummarizeMutations._stats_row / _other_count (every branch),
+    halIndels._clean (every window of 9 bases with N runs), mafMutations'
+    count_block / _rc_keep_gaps (random gapped rows) and
+    halCoverageTable.parse_coverage: equal to their originals."""
+    import contextlib
+
+    from hal_tpu.ops import rearrangement as jax_rea
+    from hal_tpu.tools import hal2paf as jax_paf
+    from hal_tpu.tools import halCoverageTable as jax_ct
+    from hal_tpu.tools import halIndels as jax_ind
+    from hal_tpu.tools import halSummarizeMutations as jax_sum
+    from hal_tpu.tools import mafMutations as jax_mm
+    from hal_tpu_torch.ops import rearrangement as port_rea
+    from hal_tpu_torch.tools import hal2paf as port_paf
+    from hal_tpu_torch.tools import halCoverageTable as port_ct
+    from hal_tpu_torch.tools import halIndels as port_ind
+    from hal_tpu_torch.tools import halSummarizeMutations as port_sum
+    from hal_tpu_torch.tools import mafMutations as port_mm
+
+    fixture = dict(FIXTURE, seed=23, min_segments=20, max_segments=80)
+    jaln = jax_random_alignment(**fixture)
+    paln = create_random_alignment(**fixture)
+    for aln in (jaln, paln):
+        for name in aln.genome_names():
+            g = aln.open_genome(name)
+            for s in range(0, g.length - 3, 97):
+                g.set_dna(s, "NnN")
+    children = [n for n in jaln.genome_names() if jaln.tree.parent(n)]
+    rng = np.random.default_rng(4)
+    if fn == "genome_to_paf":
+        for name in children:
+            for full in (False, True):
+                want, got = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stderr(io.StringIO()):
+                    jax_paf.genome_to_paf(want, jaln, name, full)
+                    port_paf.genome_to_paf(got, paln, name, full)
+                assert got.getvalue() == want.getvalue(), name
+    elif fn == "stats_row":
+        for name in children:
+            want = jax_rea.analyze_branch(jaln, name)
+            got = port_rea.analyze_branch(paln, name)
+            assert port_sum._stats_row(paln, name, got) == \
+                jax_sum._stats_row(jaln, name, want)
+            assert port_sum._other_count(got) == jax_sum._other_count(want)
+    elif fn == "clean":
+        for name in jaln.genome_names():
+            jg, pg = jaln.open_genome(name), paln.open_genome(name)
+            flags = [(port_ind._clean(pg, lo, lo + 9),
+                      jax_ind._clean(jg, lo, lo + 9))
+                     for lo in range(-3, jg.length + 3, 4)]
+            assert all(a == b for a, b in flags)
+            assert {a for a, _ in flags} == {True, False}
+    elif fn == "count_block":
+        for _ in range(40):
+            rows = [rng.choice(np.frombuffer(b"ACGTacgtN-", np.uint8), 30)
+                    for _ in range(int(rng.integers(1, 5)))]
+            assert port_mm.count_block(rows) == jax_mm.count_block(rows)
+            assert np.array_equal(port_mm._rc_keep_gaps(rows[0]),
+                                  jax_mm._rc_keep_gaps(rows[0]))
+    else:
+        path = tmp_path / "cov.txt"
+        path.write_text("Genome, sites, sites\nA, 10, 1\nB , 7, 2\n"
+                        "Coverage on A_seq\nA, 5, 0\nB, 3, 1\nnoise\n")
+        assert port_ct.parse_coverage(str(path)) == \
+            jax_ct.parse_coverage(str(path)) == \
+            {"Total": {"A": 10, "B": 7}, "A_seq": {"A": 5, "B": 3}}
 
 
 @pytest.mark.parametrize("scale,kw", [(2, {}), (9, {}),

@@ -144,6 +144,92 @@ def test_convert_batched_bytes_equal_convert(opts):
     assert o2.getvalue() == o1.getvalue() and o1.getvalue()
 
 
+@pytest.mark.parametrize("opts", [{}, dict(traverse_dupes=False),
+                                  dict(coalescence_limit="root"),
+                                  dict(out_psl=True)],
+                         ids=["default", "noDupes", "coalescence", "psl"])
+@pytest.mark.parametrize("kind", ["bed6", "bed12"])
+def test_convert_batched_maps_nothing_on_the_host(monkeypatch, opts, kind):
+    """convert_batched with the port's segmap_host.map_source refused:
+    every interval a line lifts (a BED12 line's blocks too) comes from the
+    batched mapper's cache, and the bytes equal hal_tpu's per-line
+    convert."""
+    from hal_tpu_torch.ops import segmap_host as port_sm
+
+    aln = create_random_alignment(seed=5, max_genomes=8, min_genomes=6,
+                                  mean_degree=1.4, min_segments=10,
+                                  max_segments=40, min_segment_length=4,
+                                  max_segment_length=12)
+    names = aln.genome_names()
+    leaves = [n for n in names if aln.tree.is_leaf(n)]
+    src, tgt = leaves[0], leaves[-1]
+    if opts.get("coalescence_limit") == "root":
+        src, tgt = next((s, t) for s in names for t in names
+                        if s != t and aln.tree.lca(s, t) != aln.root_name)
+        opts = dict(coalescence_limit=aln.root_name)
+    bed = (_bed_lines(aln, src, 200, 3, bed6=True) if kind == "bed6"
+           else _bed12_lines(aln, src, 200, 8))
+    want = io.StringIO()
+    HostLiftover(aln, src, tgt, **opts).convert(io.StringIO(bed), want)
+
+    def refuse(*a, **k):
+        raise AssertionError("host map_source called")
+
+    monkeypatch.setattr(port_sm, "map_source", refuse)
+    got = io.StringIO()
+    Liftover(aln, src, tgt, device="cpu", **opts).convert_batched(
+        io.StringIO(bed), got, batch_size=64)
+    assert got.getvalue() == want.getvalue() and want.getvalue()
+
+
+@pytest.mark.parametrize("out_psl", [False, True], ids=["bed", "psl"])
+def test_convert_batched_coalescence_deep_chain_equals_convert(out_psl):
+    """--coalescenceLimit at the root where the chain from the MRCA to it
+    holds three genomes or more (a four-level tree): convert_batched's
+    paralogy branches bring paralogs down without rings, as map_source
+    does, so its bytes equal hal_tpu's per-line convert for every such
+    pair (segmap_jax's branches, which ring-expand at every down hop, add
+    fragments there)."""
+    aln = create_random_alignment(seed=3, max_genomes=8, min_segments=30,
+                                  max_segments=80)
+    names, root = aln.genome_names(), aln.root_name
+    pairs = [(s, t) for s in names for t in names if s != t
+             and len(aln.tree.path(aln.tree.lca(s, t), root)) >= 3]
+    assert len(pairs) >= 10
+    for src, tgt in pairs:
+        bed = _bed_lines(aln, src, 120, 2, bed6=True)
+        want, got = io.StringIO(), io.StringIO()
+        HostLiftover(aln, src, tgt, coalescence_limit=root,
+                     out_psl=out_psl).convert(io.StringIO(bed), want)
+        Liftover(aln, src, tgt, device="cpu", coalescence_limit=root,
+                 out_psl=out_psl).convert_batched(io.StringIO(bed), got,
+                                                  batch_size=64)
+        assert got.getvalue() == want.getvalue() and want.getvalue(), \
+            (src, tgt)
+
+
+def test_batched_cache_miss_raises():
+    """While the batched fragment cache is set, a line whose interval the
+    batch did not map raises RuntimeError naming the interval; nothing is
+    mapped on the host behind it."""
+    from hal_tpu_torch.io.bed import read_bed
+
+    aln = create_random_alignment(seed=5, max_genomes=8, min_genomes=6,
+                                  mean_degree=1.4, min_segments=10,
+                                  max_segments=40, min_segment_length=4,
+                                  max_segment_length=12)
+    leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+    src, tgt = leaves[0], leaves[-1]
+    text = _bed_lines(aln, src, 6, 3, bed6=True)
+    lifter = Liftover(aln, src, tgt, device="cpu")
+    lifter.map_lines(read_bed(io.StringIO(text[:text.index("\n") + 1])))
+    first, second = list(read_bed(io.StringIO(text)))[:2]
+    assert lifter.visit_line(first) is not None
+    with pytest.raises(RuntimeError, match="%s:%d-%d of %s was not mapped"
+                       % (second.chrom, second.start, second.end, src)):
+        lifter.visit_line(second)
+
+
 @pytest.fixture(scope="module")
 def halz_fixture(tmp_path_factory):
     aln = create_random_alignment(seed=9, max_genomes=7, min_genomes=5,
@@ -300,7 +386,8 @@ def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
     phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap,
     the assembly-hub path's tools and host copies, the analysis tools, their
-    copies and the tool dispatcher included —
+    copies, the region, SNP, export and mutation tools and the tool
+    dispatcher included —
     imports without jax or any module of the JAX package (hal_tpu,
     hal_tpu.*) entering the process: the port keeps its own copies of the
     host code it needs."""
@@ -330,7 +417,13 @@ def test_port_imports_no_jax():
             "tools.halMaskExtract tools.halBranchMutations "
             "tools.halTreeMutations tools.halTreeNIBackground "
             "tools.halTreeNIConservation tools.estimateTurnoverParams "
-            "tools.halTreeNITurnover tools.runDotplot').split()}\n"
+            "tools.halTreeNITurnover tools.runDotplot tools._regions "
+            "tools.findRegionsExclusivelyInGroup "
+            "tools.halSingleCopyRegionsExtract tools.hal4dExtract "
+            "tools.halSnps tools.halContiguousRegions tools.hal2chain "
+            "tools.hal2paf tools.halCoverageTable "
+            "tools.halSummarizeMutations tools.mafMutations "
+            "tools.halIndels tools.getInsertionStats').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"

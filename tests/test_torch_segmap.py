@@ -418,3 +418,64 @@ def test_kernel_lookup_on_paged_levels_equals_jax(monkeypatch, case):
     st._run_path(pt, st.coords(pt, lo), st.coords(pt, hi),
                  torch.arange(len(lo), dtype=pt.dtype), caps)
     assert len(seen) == 2 * len(caps) and all(f is not None for f in seen)
+
+
+@pytest.mark.parametrize("case", ["paged", "big_u32"])
+def test_compaction_programs_equal_jax(monkeypatch, case):
+    """compact, compact_packed and compact_u32_fixed (at the host-sized
+    out_cols and at a quarter of it, which overflows) on the fragment
+    matrices of test_segmap_jax's paged and uint32 fixtures are element-
+    equal to segmap_jax's _compact_jit, _compact_packed_jit and
+    _compact_u32_fixed_jit on its own; decode_u32_fixed equals its
+    decode_u32_fixed; compact's rows are the valid columns in order."""
+    if case == "paged":
+        monkeypatch.setattr(sj, "_PALLAS_GRID_LIMIT", 4)
+        monkeypatch.setattr(st, "_PAGE_GRID_LIMIT", 4)
+        aln = create_random_alignment(seed=5, max_genomes=5, min_segments=8,
+                                      max_segments=40, min_segment_length=3,
+                                      max_segment_length=9)
+        leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+        rng = np.random.default_rng(5)
+        g = aln.open_genome(leaves[0])
+        lo = rng.integers(0, g.length - 2, 16)
+        hi = np.minimum(lo + rng.integers(1, 40, 16), g.length)
+    else:
+        aln, lo, hi = _big_genome()
+        leaves = [n for n in aln.genome_names() if aln.tree.is_leaf(n)]
+    src, tgt = leaves[0], leaves[-1]
+    J, T, pj, pt, caps = _run_both(aln, src, tgt, lo, hi)
+    FJ, FT = jnp.asarray(J[0]), torch.from_numpy(T[0])
+    assert not bool(J[2]) and not bool(T[2])
+
+    a, ta = sj._compact_jit(FJ)
+    b, tb = st.compact(FT)
+    assert b.numpy().dtype == np.asarray(a).dtype or case == "big_u32"
+    assert np.array_equal(b.numpy(), np.asarray(a).astype(b.numpy().dtype))
+    assert int(tb) == int(ta) > 0 and tb.dtype == torch.int32
+    valid = T[0][st.C_VALID] > 0
+    assert np.array_equal(b.numpy()[:, :int(tb)], T[0][:6, valid])
+
+    a1, a2, ta = sj._compact_packed_jit(FJ)
+    b1, b2, tb = st.compact_packed(FT)
+    assert np.array_equal(b1.numpy(), np.asarray(a1).astype(b1.numpy().dtype))
+    assert b2.dtype == torch.int32 and np.array_equal(b2.numpy(), np.asarray(a2))
+    assert int(tb) == int(ta)
+
+    _totals, final_rows = sj.host_level_totals(aln, src, tgt, lo, hi,
+                                               with_final=True)
+    out_cols = sj._bucket_cap(final_rows)
+    for oc, ovf in ((out_cols, False), (max(out_cols // 4, 1), True)):
+        a, ta, oa = sj._compact_u32_fixed_jit(FJ, oc, 8)
+        b, tb, ob = st.compact_u32_fixed(FT, oc, 8)
+        host = st.wire_to_host(b)
+        assert host.shape == (3, oc) and np.array_equal(host, np.asarray(a))
+        assert int(tb) == int(ta) == final_rows
+        assert bool(ob) == bool(oa) == ovf
+        k = min(int(ta), oc)
+        for x, y in zip(st.decode_u32_fixed(host, k, 8),
+                        sj.decode_u32_fixed(np.asarray(a), k, 8)):
+            assert np.array_equal(x, y)
+    # a packing the rows do not fit (a len >= 2^1) raises the flag
+    _b, tb, ob = st.compact_u32_fixed(FT, out_cols, 1)
+    _a, ta, oa = sj._compact_u32_fixed_jit(FJ, out_cols, 1)
+    assert bool(ob) and bool(oa) and int(tb) == int(ta)
