@@ -5,6 +5,7 @@
     python3 chip_smoke.py --hub-only [--hub-segments N]   # phases 1 and 8
     python3 chip_smoke.py --analysis-only [--analysis-segments N]  # 1 and 9
     python3 chip_smoke.py --regions-only [--analysis-segments N]   # 1 and 10
+    python3 chip_smoke.py --editing-only [--analysis-segments N]   # 1 and 11
 
 Phases (any failure raises and exits non-zero; nothing is caught), each
 printing its seconds:
@@ -123,7 +124,30 @@ printing its seconds:
      BED12 genes; each on --device cuda in this process under the
      profiler and on --device cpu in a subprocess beside it, files,
      stdout and stderr equal between the two.
-Phases 4-10 (6b included) each drive a path with the launch counts set to
+  11. the editing, import and generation tools.  ancestorsML of the root
+     of phase 6's MAF fixture (made here under --editing-only; its root
+     over 9 leaves, ~134 Mb a genome), saved as mmap: --device cuda in
+     this process under the profiler and alone on the host, timed (open,
+     likelihood pass, save) with its device ms and peak memory, then
+     --device cpu on a copy in a subprocess; the segment map of every
+     child (rows and reversal per position, through cummax_i32) equal to
+     the plain scan's at every position; the root's new DNA equal under
+     the tie rule (a differing base must be one where the cpu pass's two
+     largest posteriors lie within 1e-12, or its largest within 1e-12 of
+     --thresholdN), every other genome and table unchanged, stderr
+     equal.  ancestorsMLMP on copies of phase 9's alignment, cuda against
+     cpu, every ancestor's DNA equal under the tie rule.  halSetMetadata,
+     halRenameGenomes, halRenameSequences, halUpdateBranchLengths,
+     halWriteNucleotides, halRemoveGenome, halRemoveSubtree, halExtract
+     (a subtree), halAppendSubtree (it back) and halReplaceGenome (an
+     identical donor) on copies of phase 9's alignment, each result
+     validated and a halLiftover across the edit, cuda in this process
+     against cpu in a subprocess, bytes equal; hal2maf of one sequence,
+     maf2hal of it, halValidate, and hal2maf of the import, cuda against
+     cpu; halRandGen, halExtract to mmap and halTestGen files valid,
+     benchMark --formats halz,mmap, runAndGetResources around halValidate,
+     and halPhyloPTrain exiting 1 with the reference's phast message.
+Phases 4-11 (6b included) each drive a path with the launch counts set to
 0 just before and read just after; the three Pallas kernels' ports must
 launch on every path (on the "sharded" path, on each step's first call:
 the four steps of phase 5b and the sharded column step of phase 6; on the
@@ -131,8 +155,11 @@ the four steps of phase 5b and the sharded column step of phase 6; on the
 job and halLodBenchmark's hal2maf runs, whose counts start at 0 in their
 own processes; on the "analysis" path in every card run of a lifting
 tool, runDotplot's halLiftover job included; on the "regions" path in
-every card run), phylop_fit on the phyloP
-path and in the conservation job, and no kernel in a --device cpu job.
+every card run; on the "editing" path in every card lift and hal2maf run
+of phase 11), phylop_fit on the phyloP path and in the conservation job,
+cummax_i32 in every card run of ancestorsML (the "ancestors" path: phase
+11's in-process run and each ancestorsML job of ancestorsMLMP), and no
+kernel in a --device cpu job.
 
 Everything runs on hal_tpu_torch alone: its host modules (randgen,
 storage, segmap_host, liftover) make the fixtures and the host oracle.
@@ -144,6 +171,7 @@ power limit, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import subprocess
@@ -209,6 +237,15 @@ ANALYSIS_NI_FLAGS = ("--pval", "0.5", "--cutoff", "0.1")
 REGIONS_SNP_TARGETS = 3      # halSnps' leaves
 REGIONS_INGROUP = 2          # findRegionsExclusivelyInGroup's ingroup leaves
 REGIONS_GENES = 1 << 10      # hal4dExtract --conserved: analysis_genes' BED12
+# phase 11: ancestorsML on phase 6's MAF fixture (its root over 9 leaves,
+# ~134 Mb a genome), ancestorsMLMP and the editing tools on phase 9's
+# alignment
+EDIT_LIFT_LINES = 1 << 12    # BED intervals of each lift across an edit
+ML_THRESHOLD = 0.9           # ancestorsML's default --thresholdN
+ML_TIE = 1e-12               # the tie rule: a posterior gap or distance
+PHAST_MESSAGE = ("hal exception caught: halPhyloPTrain requires the phast "
+                 "package (phyloFit not found on PATH; reference gates this "
+                 "behind ENABLE_PHYLOP)\n")
 # The subtree fit's 4 alternating rounds stop short of convergence on a
 # ridge of (scale, subtree scale), so its float32 result depends on
 # rounding: the JAX package's float32 program and the port's plain float32
@@ -3215,6 +3252,554 @@ def phase_regions(tmp: str, segments: int = ANALYSIS_SEGMENTS,
     return total
 
 
+@contextlib.contextmanager
+def timed_calls(mod, names):
+    """While the block runs, each function of mod named in names adds its
+    seconds to the yielded dict."""
+    spent = {n: 0.0 for n in names}
+    real = {n: getattr(mod, n) for n in names}
+
+    def timed(n):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real[n](*a, **k)
+            finally:
+                spent[n] += time.perf_counter() - t0
+        return call
+
+    for n in names:
+        setattr(mod, n, timed(n))
+    try:
+        yield spent
+    finally:
+        for n in names:
+            setattr(mod, n, real[n])
+
+
+def ml_timed(argv, out_path: str, err_path: str, card: str) -> dict:
+    """ancestorsML.run(argv --device card) with its stdout and stderr in
+    files, under the profiler (run_captured): its seconds, split into open
+    (open_for_update), pass (the likelihoods, posterior and calls and
+    their copy to the host) and save (save_back), the device ms and its
+    three largest items, the peak device memory (a card run) and the
+    launches."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.tools import ancestorsML
+
+    K.reset_launches()
+    if card == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    top = []
+    with timed_calls(ancestorsML, ("open_for_update", "save_back")) as spent:
+        sec, dev = run_captured(ancestorsML.run, list(argv) + [
+            "--device", card], out_path, err_path, card, top)
+    return dict(seconds=sec, open=spent["open_for_update"], top=top,
+                save=spent["save_back"],
+                pass_=sec - spent["open_for_update"] - spent["save_back"],
+                device_ms=dev, launches=K.launches(),
+                peak=torch.cuda.max_memory_allocated() if card == "cuda"
+                else None)
+
+
+def ml_map_check(aln, genome: str, card: str) -> tuple:
+    """ancestorsML's segment map of every child of genome on the card, at
+    the run's shape: _child_rows' rows and rev through kernels.cummax_i32
+    equal, element for element, to the same map through the plain scan
+    (cummax_i32_plain) on the same inputs.  Returns (children, positions,
+    aligned positions, reversed positions) summed over the children."""
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.tools import ancestorsML
+
+    g = aln.open_genome(genome)
+    n = g.length
+    aligned = flipped = 0
+    kids = aln.tree.children(genome)
+    for child in kids:
+        args = (g, aln.open_genome(child), aln.tree.child_index(genome, child),
+                n, card)
+        before = K.cummax_i32.launches
+        rows, rev = ancestorsML._child_rows(*args)
+        if K.cummax_i32.launches != before + 1:
+            raise AssertionError("ancestorsML map of %s: cummax_i32 launched "
+                                 "%d times, want 1" % (
+                                     child, K.cummax_i32.launches - before))
+        kernel = K.cummax_i32
+        K.cummax_i32 = K.cummax_i32_plain
+        try:
+            want_rows, want_rev = ancestorsML._child_rows(*args)
+        finally:
+            K.cummax_i32 = kernel
+        bad = (rows != want_rows) | (rev != want_rev)
+        if bool(bad.any()):
+            k = int(bad.nonzero()[0, 0])
+            raise AssertionError(
+                "ancestorsML map of %s over %d positions: the kernel's rows "
+                "or rev differ from the plain scan's at %d positions (first "
+                "%d: rows %d vs %d, rev %s vs %s)"
+                % (child, n, int(bad.sum()), k, int(rows[k]),
+                   int(want_rows[k]), bool(rev[k]), bool(want_rev[k])))
+        aligned += int((rows >= 0).sum())
+        flipped += int(rev.sum())
+        del rows, rev, want_rows, want_rev, bad
+    return len(kids), n, aligned, flipped
+
+
+def same_genome(ga, gb, what: str, dna: bool = True) -> None:
+    """Every field of two genomes equal (arrays by value), the DNA unless
+    dna is false."""
+    import dataclasses
+
+    for f in dataclasses.fields(ga):
+        if f.name == "dna" and not dna:
+            continue
+        x, y = getattr(ga, f.name), getattr(gb, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            equal = np.array_equal(np.asarray(x), np.asarray(y))
+        else:
+            equal = x == y
+        if not equal:
+            raise AssertionError("%s: genome %s differs in %s"
+                                 % (what, ga.name, f.name))
+
+
+def ml_ties(aln, genome: str, got: np.ndarray, want: np.ndarray,
+            what: str) -> int:
+    """The tie rule for ancestorsML's calls of genome: where the card's
+    bases (got) differ from the --device cpu run's (want), the reference's
+    posteriors (the CPU pass, recomputed here) must tie: the two largest
+    within ML_TIE, or the largest within ML_TIE of ML_THRESHOLD.  Returns
+    the number of differing positions."""
+    import torch
+
+    from hal_tpu_torch.tools import ancestorsML
+
+    diff = np.flatnonzero(got != want)
+    if diff.size:
+        L = ancestorsML._likelihoods_for(aln, genome, "cpu")[
+            torch.from_numpy(diff)].numpy()
+        post = L / np.maximum(L.sum(axis=1, keepdims=True), 1e-300)
+        top = np.sort(post, axis=1)
+        tie = (top[:, 3] - top[:, 2] <= ML_TIE) | (
+            np.abs(top[:, 3] - ML_THRESHOLD) <= ML_TIE)
+        if not tie.all():
+            k = int(np.flatnonzero(~tie)[0])
+            raise AssertionError(
+                "%s: %s's bases differ at %d positions, %d outside the tie "
+                "set (first: position %d, posteriors %s)"
+                % (what, genome, diff.size, int((~tie).sum()), int(diff[k]),
+                   post[k].tolist()))
+    return int(diff.size)
+
+
+def rewrote(old: np.ndarray, new: np.ndarray, genome: str) -> bytes:
+    """ancestorsML --printWrites' line for calls new over bases old."""
+    up = np.where((old >= 97) & (old <= 122), old - 32, old)
+    return ("ancestorsML: rewrote %d/%d bases of %s\n"
+            % (int((up != new).sum()), len(new), genome)).encode()
+
+
+def lift_bed(g, path: str, n: int, seed: int, rename=None) -> str:
+    """n intervals of 1-500 bp at random places of g's sequences, as BED4
+    (rename maps sequence names), in path."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for k in range(n):
+        si = int(rng.integers(0, g.num_sequences))
+        ln = g.seq_length(si)
+        lo = int(rng.integers(0, max(ln - 1, 1)))
+        hi = min(lo + int(rng.integers(1, 501)), ln)
+        name = g.seq_names[si]
+        rows.append("%s\t%d\t%d\tr%d\n" % ((rename or {}).get(name, name),
+                                             lo, hi, k))
+    with open(path, "w") as f:
+        f.writelines(rows)
+    return path
+
+
+def validated(path: str, what: str) -> None:
+    from hal_tpu_torch.tools import halValidate
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        halValidate.run([path])
+    if out.getvalue() != "\nFile valid\n":
+        raise AssertionError("%s: halValidate printed %r" % (what,
+                                                             out.getvalue()))
+
+
+def phase_editing(tmp: str, maf_aln=None, segments: int = ANALYSIS_SEGMENTS,
+                  card: str = "cuda") -> tuple:
+    """The editing, import and generation tools.  11a: ancestorsML of the
+    root of phase 6's MAF fixture (made here when maf_aln is None), saved
+    as mmap, --device card in this process, alone on the host and timed
+    (open, pass, save), then --device cpu in a subprocess on a copy: the
+    segment map of every child of the root through cummax_i32 equal to the
+    plain scan's at every position (ml_map_check), the root's new DNA
+    equal under the tie rule, every other genome and every table
+    unchanged, stderr equal.  11b: ancestorsMLMP on copies of phase 9's
+    alignment, card against cpu, every ancestor's DNA equal under the tie
+    rule.  11c: halSetMetadata, halRenameGenomes, halRenameSequences,
+    halUpdateBranchLengths, halWriteNucleotides, halRemoveGenome (a leaf),
+    halRemoveSubtree, halExtract (a subtree), halAppendSubtree (it back)
+    and halReplaceGenome (an identical donor), each on a copy of phase 9's
+    alignment and each result validated; on each, halLiftover across the
+    edit, card in this process against cpu in a subprocess, bytes equal;
+    hal2maf of one sequence, maf2hal of that MAF, halValidate, and hal2maf
+    of the imported alignment, card against cpu.  11d: halRandGen,
+    halExtract to mmap, halTestGen (each validated), benchMark --formats
+    halz,mmap, runAndGetResources around halValidate, and halPhyloPTrain
+    failing with the reference's phast message.  Every card run of
+    ancestorsML launches cummax_i32, every card lift or hal2maf every
+    Pallas port, no cpu run a kernel.  Returns the launches summed over
+    the card runs of 11a-11b ("ancestors") and of 11c ("editing")."""
+    import re
+    import shutil
+
+    import torch
+
+    from hal_tpu_torch.ops import kernels as K
+    from hal_tpu_torch.storage import open_alignment, save_alignment
+    from hal_tpu_torch.tools import (benchMark, hal2maf, halAppendSubtree,
+                                     halExtract, halLiftover, halPhyloPTrain,
+                                     halRandGen, halRemoveGenome,
+                                     halRemoveSubtree, halRenameGenomes,
+                                     halRenameSequences, halReplaceGenome,
+                                     halSetMetadata, halTestGen,
+                                     halUpdateBranchLengths,
+                                     halWriteNucleotides, maf2hal)
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "editing")
+    os.makedirs(d)
+    ancestors, editing = {}, {}
+
+    def add(total, counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    def sync():
+        if card == "cuda":
+            torch.cuda.synchronize()
+
+    # ---- 11a: the fixture, its copy, the cpu run started first
+    t0 = time.perf_counter()
+    made = maf_aln is None
+    if made:
+        maf_aln = build_maf_alignment(MAF_SEGMENTS)
+    root = maf_aln.root_name
+    n_root = maf_aln.open_genome(root).length
+    ml = {run: os.path.join(d, "ml_%s.mmap" % run) for run in ("card", "cpu")}
+    save_alignment(maf_aln, ml["card"], fmt="mmap")
+    shutil.copyfile(ml["card"], ml["cpu"])
+    log("phase 11 ancestorsML fixture: %s, %d genomes, root %s over %d "
+        "children, %.1f Mb; mmap %.2f GB saved and copied, in %.1fs"
+        % ("made (MAF_SEGMENTS)" if made else "phase 6's", maf_aln.num_genomes,
+           root, len(maf_aln.tree.children(root)), n_root / 1e6,
+           os.path.getsize(ml["card"]) / 1e9, time.perf_counter() - t0))
+
+    def ml_argv(run):
+        return [ml[run], root, "--printWrites"]
+
+    cpu_env = {"OMP_NUM_THREADS": "1"}
+    with port_tools(d) as start:
+        # the card run alone on the host; its cpu reference starts after it
+        res = ml_timed(ml_argv("card"), ml["card"] + ".out",
+                       ml["card"] + ".err", card)
+        ml_cpu = start("ancestorsML", ml_argv("cpu") + ["--device", "cpu"],
+                       "ml_cpu")
+        check_launched(res["launches"], "ancestors (ancestorsML --device %s)"
+                       % card, ("cummax_i32",))
+        add(ancestors, res["launches"])
+        log("  11a ancestorsML --device %s (alone): %.2fs (open %.2f, pass "
+            "%.2f, save %.2f), device %s, peak device memory %s, launches %s"
+            % (card, res["seconds"], res["open"], res["pass_"], res["save"],
+               "%.2f ms, %.2f%% of the run" % (
+                   res["device_ms"], res["device_ms"] / res["seconds"] / 10)
+               if res["device_ms"] else "not measured",
+               "%.2f GB" % (res["peak"] / 1e9) if res["peak"] else "-",
+               {k: v for k, v in res["launches"].items() if v}))
+        log("    device top: %s" % "; ".join(
+            "%s %.3f ms" % (k[:70], ms) for k, ms in res["top"]))
+        t0 = time.perf_counter()
+        kids, n_map, aligned, flipped = ml_map_check(maf_aln, root, card)
+        log("  11a segment map of %d children x %d positions: cummax_i32's "
+            "rows and rev equal to the plain scan's at every position (%d "
+            "aligned, %d reversed); %.2fs"
+            % (kids, n_map, aligned, flipped, time.perf_counter() - t0))
+
+        # ---- 11b: ancestorsMLMP on copies of phase 9's alignment
+        fx = analysis_fixture(tmp, segments, "phase 11")
+        hal, aln9 = fx["hal"], fx["aln"]
+        anc9 = [n for n in aln9.genome_names() if aln9.tree.children(n)]
+        mp = {run: os.path.join(d, "mp_%s.halz" % run)
+              for run in ("card", "cpu")}
+        mp_wait = {}
+        for run in ("cpu", "card"):
+            shutil.copytree(hal, mp[run])
+            mp_wait[run] = start("ancestorsMLMP", [
+                mp[run], "--device", card if run == "card" else "cpu"],
+                "mp_" + run, cpu_env if run == "cpu" else None)
+
+        # ---- 11c: edits on copies, each validated and lifted across
+        tree = aln9.tree
+        src, tgt, g = fx["src"], fx["tgt"], fx["g"]
+        below = {n: set(tree.preorder(n)) for n in aln9.genome_names()}
+        leaves = [n for n in aln9.genome_names() if tree.is_leaf(n)]
+        inner = [n for n in aln9.genome_names() if tree.parent(n)
+                 and tree.children(n) and set(leaves) - below[n]]
+        if not inner:
+            raise AssertionError("phase 11: phase 9's tree has no inner "
+                                 "genome below its root")
+        x = max(inner, key=lambda n: len(below[n]))
+        x_leaf = max((n for n in leaves if n in below[x]),
+                     key=lambda n: len(tree.path(n, x)))
+        out_leaf = next(n for n in leaves if n not in below[x])
+        gone = next(n for n in leaves if n not in (src, tgt, x_leaf,
+                                                   out_leaf))
+        beds = {name: lift_bed(aln9.open_genome(name), os.path.join(
+            d, "lift_%s.bed" % name), EDIT_LIFT_LINES, 5 + i)
+            for i, name in enumerate((src, x, x_leaf))}
+        seq0 = g.seq_names[0]
+        beds["renamed"] = lift_bed(g, os.path.join(d, "lift_renamed.bed"),
+                                   EDIT_LIFT_LINES, 5,
+                                   {seq0: seq0 + "_renamed"})
+        tsv = {}
+        for name, text in (
+                ("genomes", "%s\t%s_renamed\n" % (tgt, tgt)),
+                ("sequences", "%s\t%s_renamed\n" % (seq0, seq0))):
+            tsv[name] = os.path.join(d, name + ".tsv")
+            with open(tsv[name], "w") as f:
+                f.write(text)
+        rng = np.random.default_rng(17)
+        with open(os.path.join(d, "writes.tsv"), "w") as f:
+            for name in (src, tgt):
+                gg = aln9.open_genome(name)
+                for pos in rng.integers(0, gg.length, 16):
+                    cur = gg.get_dna_string(int(pos), 1)
+                    f.write("%s\t%d\t%s\t%s\n" % (name, pos, cur,
+                                                  "C" if cur in "aA" else "A"))
+        newick = re.sub(r":[0-9.eE+-]+", ":0.5", tree.to_newick())
+        stages = {}  # name: the edited file
+
+        def edited(name, mod, argv_of, base=None):
+            path = os.path.join(d, "edit_%s.halz" % name)
+            if base is not None:
+                shutil.copytree(base, path)
+            t0 = time.perf_counter()
+            mod.run([str(a) for a in argv_of(path)])
+            t_edit = time.perf_counter() - t0
+            validated(path, "editing %s" % name)
+            stages[name] = path
+            return t_edit
+
+        lifts = []
+
+        def lift(name, path, a, bed, b, tool=halLiftover):
+            if tool is halLiftover:
+                argv = lambda out: [path, a, bed, b, out + ".bed"]
+            else:
+                argv = lambda out: [path, out + ".maf"]
+            out = os.path.join(d, "lift_" + name)
+            cpu = start(tool.__name__.rsplit(".", 1)[1], argv(out + "_cpu")
+                        + ["--device", "cpu"], "lift_%s_cpu" % name, cpu_env)
+            K.reset_launches()
+            sec, dev = run_captured(tool.run, argv(out + "_card")
+                                    + ["--device", card], out + "_card.out",
+                                    out + "_card.err", card)
+            counts = K.launches()
+            check_launched(counts, "editing (%s after %s --device %s)"
+                           % (tool.__name__.rsplit(".", 1)[1], name, card))
+            add(editing, counts)
+            lifts.append((name, out, cpu, sec, dev, counts))
+
+        renamed = tgt + "_renamed"
+        t_edits = {}
+        for name, mod, argv_of, base, target in (
+                ("halSetMetadata", halSetMetadata,
+                 lambda p: [p, "editedBy", "chip_smoke"], hal,
+                 (src, beds[src], tgt)),
+                ("halRenameGenomes", halRenameGenomes,
+                 lambda p: [p, tsv["genomes"]], hal,
+                 (src, beds[src], renamed)),
+                ("halRenameSequences", halRenameSequences,
+                 lambda p: [p, src, tsv["sequences"]], hal,
+                 (src, beds["renamed"], tgt)),
+                ("halUpdateBranchLengths", halUpdateBranchLengths,
+                 lambda p: [p, newick], hal, (src, beds[src], tgt)),
+                ("halWriteNucleotides", halWriteNucleotides,
+                 lambda p: [p, os.path.join(d, "writes.tsv")], hal,
+                 (src, beds[src], tgt)),
+                ("halRemoveGenome", halRemoveGenome,
+                 lambda p: [p, gone], hal,
+                 (src, beds[src], tree.parent(gone))),
+                ("halRemoveSubtree", halRemoveSubtree,
+                 lambda p: [p, x], hal, (x, beds[x], out_leaf)),
+                ("halExtract", halExtract,
+                 lambda p: [hal, p, "--root", x], None,
+                 (x_leaf, beds[x_leaf], x)),
+                ("halAppendSubtree", halAppendSubtree,
+                 lambda p: [p, stages["halExtract"], tree.parent(x), x],
+                 "removed", (x_leaf, beds[x_leaf], out_leaf)),
+                ("halReplaceGenome", halReplaceGenome,
+                 lambda p: [p, x, "--topAlignmentFile", hal,
+                            "--bottomAlignmentFile", hal], hal,
+                 (x_leaf, beds[x_leaf], out_leaf))):
+            if base == "removed":
+                base = stages["halRemoveSubtree"]
+            t_edits[name] = edited(name, mod, argv_of, base)
+            lift(name, stages[name], *target)
+        # the maf2hal round trip
+        rt_maf = os.path.join(d, "rt_src.maf")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        notes = io.StringIO()  # the engine's notice, maf2hal's warnings
+        with contextlib.redirect_stderr(notes):
+            hal2maf.run([hal, rt_maf, "--refGenome", src, "--refSequence",
+                         seq0, "--device", card])
+            sync()
+            t_rt = time.perf_counter() - t0
+            counts = K.launches()
+            check_launched(counts, "editing (hal2maf of %s --device %s)"
+                           % (seq0, card))
+            add(editing, counts)
+            imported = os.path.join(d, "rt.halz")
+            t0 = time.perf_counter()
+            maf2hal.run([rt_maf, imported])
+            t_import = time.perf_counter() - t0
+        notes = notes.getvalue().splitlines()
+        validated(imported, "editing maf2hal")
+        lift("maf2hal", imported, None, None, None, tool=hal2maf)
+
+        # ---- 11d: generation and resource tools
+        t0 = time.perf_counter()
+        gen = {name: os.path.join(d, name) for name in (
+            "rand.halz", "rand.mmap", "test.halz")}
+        halRandGen.run([gen["rand.halz"], "--preset", "small", "--seed", "7",
+                        "--format", "halz"])
+        halExtract.run([gen["rand.halz"], gen["rand.mmap"], "--outputFormat",
+                        "mmap"])
+        halTestGen.run([gen["test.halz"]])
+        for name, path in gen.items():
+            validated(path, "generation " + name)
+        bench = io.StringIO()
+        with contextlib.redirect_stdout(bench):
+            benchMark.run(["--formats", "halz,mmap"])
+        rows = bench.getvalue().splitlines()
+        if [r.split(", ")[0] for r in rows[1:]] != ["halz", "mmap"]:
+            raise AssertionError("benchMark printed %r" % bench.getvalue())
+        _s, res_out, _l = start("runAndGetResources", [
+            sys.executable, "-m", "hal_tpu_torch.tools.halValidate",
+            gen["rand.mmap"]], "resources")()
+        if not re.fullmatch(r"\nFile valid\n\([0-9]+\.[0-9]{3}, [0-9]+\)\n",
+                            res_out):
+            raise AssertionError("runAndGetResources printed %r" % res_out)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = halPhyloPTrain.main([hal, src, fx["bed12"],
+                                      os.path.join(d, "neutral.mod"),
+                                      "--device", card])
+        if rc != 1 or err.getvalue() != PHAST_MESSAGE:
+            raise AssertionError("halPhyloPTrain: exit %d, %r; want exit 1, "
+                                 "%r" % (rc, err.getvalue(), PHAST_MESSAGE))
+        log("  11d halRandGen (halz, then halExtract to mmap) and halTestGen "
+            "valid; benchMark: %s; runAndGetResources %s; halPhyloPTrain "
+            "exit 1 with the phast message; %.1fs"
+            % ("; ".join(rows[1:]), res_out.split("\n")[-2],
+               time.perf_counter() - t0))
+
+        # ---- the references
+        lifts = [row + (row[2](),) for row in lifts]
+        mp_runs = {run: mp_wait[run]() for run in ("card", "cpu")}
+        cpu_sec, _out, cpu_log = ml_cpu()
+
+    # ---- 11a checks
+    no_launches(launch_log(cpu_log), "ancestorsML --device cpu")
+    a, b = (open_alignment(ml[run]) for run in ("card", "cpu"))
+    for name in maf_aln.genome_names():
+        for got, run in ((a, "card"), (b, "cpu")):
+            same_genome(got.open_genome(name), maf_aln.open_genome(name),
+                        "ancestorsML (%s)" % run, dna=name != root)
+    old = maf_aln.open_genome(root).get_dna(0, n_root)
+    x_card = a.open_genome(root).get_dna(0, n_root)
+    x_cpu = b.open_genome(root).get_dna(0, n_root)
+    ties = ml_ties(maf_aln, root, x_card, x_cpu, "ancestorsML")
+    errs = {"card": read(ml["card"] + ".err"),
+            "cpu": read(os.path.join(d, "ml_cpu.err"))}
+    want = {"card": rewrote(old, x_card, root), "cpu": rewrote(old, x_cpu,
+                                                                root)}
+    if errs != want or (not ties and errs["card"] != errs["cpu"]):
+        raise AssertionError("ancestorsML stderr: %r, want %r" % (errs, want))
+    log("  11a ancestorsML --device cpu (a subprocess, concurrent with "
+        "11b-11d): %.2fs; %s; root DNA equal but for %d tie-set positions; "
+        "every other genome and table unchanged"
+        % (cpu_sec, errs["cpu"].decode().strip(), ties))
+
+    # ---- 11b checks
+    jobs = launch_log(mp_runs["card"][2])
+    counts = card_jobs(jobs, "ancestorsML", ("cummax_i32",),
+                       "ancestors (ancestorsMLMP --device %s)" % card)
+    if len([j for j in jobs if j[0] == "ancestorsML"]) != len(anc9):
+        raise AssertionError("ancestorsMLMP ran %d ancestorsML jobs for %d "
+                             "ancestors" % (len([j for j in jobs if j[0] ==
+                                                 "ancestorsML"]), len(anc9)))
+    add(ancestors, counts)
+    no_launches(launch_log(mp_runs["cpu"][2]), "ancestorsMLMP --device cpu")
+    a, b = (open_alignment(mp[run]) for run in ("card", "cpu"))
+    ties = 0
+    for name in aln9.genome_names():
+        for got, run in ((a, "card"), (b, "cpu")):
+            same_genome(got.open_genome(name), aln9.open_genome(name),
+                        "ancestorsMLMP (%s)" % run, dna=name not in anc9)
+        if name in anc9:
+            n = aln9.open_genome(name).length
+            ties += ml_ties(aln9, name, a.open_genome(name).get_dna(0, n),
+                            b.open_genome(name).get_dna(0, n),
+                            "ancestorsMLMP")
+    log("  11b ancestorsMLMP of %d ancestors: --device %s %.2fs, --device "
+        "cpu %.2fs (concurrent); DNA equal but for %d tie-set positions; "
+        "launches %s" % (len(anc9), card, mp_runs["card"][0],
+                         mp_runs["cpu"][0], ties,
+                         {k: v for k, v in counts.items() if v}))
+    log_jobs(jobs)
+
+    # ---- 11c checks
+    log("  11c x = %s (%d genomes below), %s under it, %s outside, %s "
+        "removed; edits (s): %s; hal2maf of %s %.2fs (%s), maf2hal %.2fs "
+        "(%d lines of warnings, the first %r)"
+        % (x, len(below[x]), x_leaf, out_leaf, gone,
+           ", ".join("%s %.2f" % kv for kv in t_edits.items()), seq0, t_rt,
+           notes[0] if notes else "", t_import, len(notes) - 1,
+           notes[1] if len(notes) > 1 else ""))
+    for name, out, _wait, sec, dev, counts, (cpu_sec, _o, cpu_log) in lifts:
+        no_launches(launch_log(cpu_log), "editing %s --device cpu" % name)
+        ext = ".bed" if name != "maf2hal" else ".maf"
+        got = (read(out + "_card" + ext), read(out + "_card.err"))
+        want = (read(out + "_cpu" + ext),
+                read(os.path.join(d, "lift_%s_cpu.err" % name)))
+        if got != want or not got[0]:
+            raise AssertionError("editing %s: --device %s output differs "
+                                 "from --device cpu (%d vs %d bytes)"
+                                 % (name, card, len(got[0]), len(want[0])))
+        log("    %s after %s: %d bytes equal; --device %s %.2fs (device %s), "
+            "cpu %.2fs; launches %s"
+            % ("hal2maf" if name == "maf2hal" else "halLiftover", name,
+               len(got[0]), card, sec, "%.2f ms" % dev if dev else "-",
+               cpu_sec, {k: v for k, v in counts.items() if v}))
+    log("  ancestors path launches: %s; editing path launches: %s"
+        % (ancestors, editing))
+    log("phase 11 passed in %.1fs" % (time.perf_counter() - t_phase))
+    return ancestors, editing
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3236,6 +3821,10 @@ def main(argv=None) -> int:
     ap.add_argument("--regions-only", action="store_true",
                     help="phase 1, then phase 10 alone; prints no result "
                          "lines")
+    ap.add_argument("--editing-only", action="store_true",
+                    help="phase 1, then phase 11 alone (on its own MAF "
+                         "fixture and phase 9's alignment); prints no "
+                         "result lines")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "hal_tpu_torch")):
         raise SystemExit("chip_smoke: run from a checkout of the repository "
@@ -3272,6 +3861,12 @@ def main(argv=None) -> int:
         log("--regions-only: phases 1 and 10 passed in %.1fs; no result "
             "lines" % (time.perf_counter() - t_start))
         return 0
+    if args.editing_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_editing(tmp, segments=args.analysis_segments)
+        log("--editing-only: phases 1 and 11 passed in %.1fs; no result "
+            "lines" % (time.perf_counter() - t_start))
+        return 0
     t0 = time.perf_counter()
     rec = phase_kernels(dev)
     log("phase 2 passed in %.1fs" % (time.perf_counter() - t0))
@@ -3297,7 +3892,7 @@ def main(argv=None) -> int:
             paths["sharded"][k] += c
         paths["remote"] = phase_remote(tmp, cli, runs)
         rec["phylop_fit"], paths["phylop"] = phase_phylop(dev, maf, tmp)
-        small_hal, small_ref = maf[2], maf[3]
+        small_hal, small_ref, maf_aln = maf[2], maf[3], maf[0]
         del maf
         torch.cuda.empty_cache()
         paths["hub"] = phase_hub(tmp, small_hal, small_ref,
@@ -3306,6 +3901,9 @@ def main(argv=None) -> int:
                                            segments=args.analysis_segments)
         paths["regions"] = phase_regions(tmp,
                                          segments=args.analysis_segments)
+        paths["ancestors"], paths["editing"] = phase_editing(
+            tmp, maf_aln, segments=args.analysis_segments)
+        del maf_aln
     for name in PALLAS_PORTS:
         rec[name]["launches"] = counts[name]
     rec["phylop_fit"]["launches"] = paths["phylop"]["phylop_fit"]

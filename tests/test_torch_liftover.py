@@ -386,8 +386,8 @@ def test_port_imports_no_jax():
     """Every hal_tpu_torch module — the depth and column engines, the
     phyloP fit, the sharded steps, remote storage, their CLIs, benchOverlap,
     the assembly-hub path's tools and host copies, the analysis tools, their
-    copies, the region, SNP, export and mutation tools and the tool
-    dispatcher included —
+    copies, the region, SNP, export and mutation tools, the editing, import
+    and generation tools and the tool dispatcher included —
     imports without jax or any module of the JAX package (hal_tpu,
     hal_tpu.*) entering the process: the port keeps its own copies of the
     host code it needs."""
@@ -423,7 +423,16 @@ def test_port_imports_no_jax():
             "tools.halSnps tools.halContiguousRegions tools.hal2chain "
             "tools.hal2paf tools.halCoverageTable "
             "tools.halSummarizeMutations tools.mafMutations "
-            "tools.halIndels tools.getInsertionStats').split()}\n"
+            "tools.halIndels tools.getInsertionStats tools._modify_common "
+            "tools.halAddToBranch tools.halAppendSubtree "
+            "tools.halRemoveGenome tools.halRemoveSubtree "
+            "tools.halRenameGenomes tools.halRenameSequences "
+            "tools.halReplaceGenome tools.halSetMetadata "
+            "tools.halUpdateBranchLengths tools.halWriteNucleotides "
+            "tools.halExtract tools.maf2hal tools.halTestGen "
+            "tools.halRandGen tools.ancestorsML tools.ancestorsMLMP "
+            "tools.halPhyloPTrain tools.benchMark "
+            "tools.runAndGetResources').split()}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [k for k in sys.modules if k in ('jax', 'hal_tpu')"
             " or k.startswith(('jax.', 'hal_tpu.'))]\n"
@@ -476,8 +485,9 @@ def _names_hal_tpu(text: str) -> bool:
 def test_chip_smoke_imports_and_runs_no_hal_tpu():
     """chip_smoke.py neither imports hal_tpu nor jax, nor names hal_tpu in
     the arguments of any subprocess it starts (read with ast); it imports
-    the port's depth and column engines, remote storage, the phyloP CLI
-    and the other CLIs, and runs the port's benchOverlap."""
+    the port's depth and column engines, remote storage, the phyloP CLI,
+    the editing tools and the other CLIs, and runs the port's
+    benchOverlap."""
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     imported = []
     for node in ast.walk(tree):
@@ -495,7 +505,8 @@ def test_chip_smoke_imports_and_runs_no_hal_tpu():
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
              for a in n.names}
     assert {"depth", "halAlignmentDepth", "halWiggleLiftover", "hal2maf",
-            "_native_build", "halPhyloP"} <= names, names
+            "_native_build", "halPhyloP", "ancestorsML", "maf2hal",
+            "halAppendSubtree"} <= names, names
     assert not [m for m in imported
                 if m.split(".")[0] in ("hal_tpu", "jax")], imported
     calls = [n for n in ast.walk(tree) if isinstance(n, ast.Call)
