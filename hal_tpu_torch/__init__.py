@@ -53,6 +53,8 @@ hal_tpu's so each counterpart is easy to find:
                         analysis tools that lift)
   __main__.py           python -m hal_tpu_torch <tool> (hal_tpu/__main__.py)
   csrc/*.cu             the CUDA sources, built by ops/_build.py
+  tracing.py            host spans and counters the MAF path records
+                        (off unless a caller enables it)
 
 When the environment variable HAL_TPU_TORCH_LAUNCH_LOG names a file, every
 process that imports this package appends one JSON line to it at exit:

@@ -24,6 +24,14 @@ program); nothing waits between programs, and a packed window drains in
 two fetches.  The engine builds each Level once, keyed by its op (kind,
 genomes) — a program's levels are the same tables whatever the program.
 
+A window's steps record hal_tpu_torch.tracing spans: column.dispatch
+(sizing a new width and launching every program), column.sync (the
+overflow flag's read), column.resize (the exact re-sizing after an
+overflow), column.drain (the two fetches), column.collect (the
+per-program decode and the identity rows) and column.postsplit; the
+counters column.frag_cols and column.drain_cols add up the fragments the
+programs produced and the columns the drain copied.
+
 Dtype rule (segmap_torch): the engine picks int32, uint32 or int64 as the
 JAX package does, from the scope's genome sizes; uint32 levels run as
 int64 tensors.  The DFS key space is checked against the PICKED dtype's
@@ -44,6 +52,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from hal_tpu_torch import tracing
 from hal_tpu_torch.alignment import Alignment
 from hal_tpu_torch.constants import NULL_INDEX
 from hal_tpu_torch.ops import segmap_torch as st
@@ -696,59 +705,74 @@ class DeviceColumnEngine:
         """One-wire dispatch: returns (big (5, sum_oc), tots (n_jobs,),
         ovf scalar) device values and the per-job out_cols — 2 fetches
         drain a whole window."""
-        lo, hi = self._window(gs, ge)
-        caps_all = tuple(self._caps[(ji, ge - gs)][0]
-                         for ji in range(len(self.jobs)))
-        oc_all = tuple(self._caps[(ji, ge - gs)][1]
-                       for ji in range(len(self.jobs)))
-        big, tots, ovf = run_fused_packed(
-            tuple(j[2] for j in self.jobs), lo, hi, caps_all,
-            tuple(j[3] for j in self.jobs), oc_all)
+        with tracing.span("column.dispatch"):
+            lo, hi = self._window(gs, ge)
+            caps_all = tuple(self._caps[(ji, ge - gs)][0]
+                             for ji in range(len(self.jobs)))
+            oc_all = tuple(self._caps[(ji, ge - gs)][1]
+                           for ji in range(len(self.jobs)))
+            big, tots, ovf = run_fused_packed(
+                tuple(j[2] for j in self.jobs), lo, hi, caps_all,
+                tuple(j[3] for j in self.jobs), oc_all)
         return big, tots, ovf, oc_all
 
     def collect_packed(self, big_np, tots_np, oc_all, gs: int, ge: int):
         """Host decode of a packed window (numpy inputs): the caller
         fetched `big` and `tots` (and checked ovf — an overflow means the
         caps cache needs the exact re-size path)."""
-        out: dict = {t: [] for t in self.programs}
-        off = 0
-        for ji, oc in enumerate(oc_all):
-            t, spec, _levels, _meta = self.jobs[ji]
-            k = int(tots_np[ji])
-            M = big_np[:, off:off + k].astype(np.int64)
-            off += oc
-            out[t].append((spec.ordinal, _St(M[0], M[1], M[2], M[3], M[4])))
-        return self._postsplit(self._with_identity(out, gs, ge))
+        with tracing.span("column.collect"):
+            out: dict = {t: [] for t in self.programs}
+            off = 0
+            for ji, oc in enumerate(oc_all):
+                t, spec, _levels, _meta = self.jobs[ji]
+                k = int(tots_np[ji])
+                M = big_np[:, off:off + k].astype(np.int64)
+                off += oc
+                out[t].append((spec.ordinal,
+                               _St(M[0], M[1], M[2], M[3], M[4])))
+            out = self._with_identity(out, gs, ge)
+        return self._postsplit(out)
+
+    def _overflowed(self, ovf) -> bool:
+        with tracing.span("column.sync"):
+            return bool(ovf.item())
 
     def window_frags(self, gs: int, ge: int) -> dict:
         """Keyed fragments for a window via the PACKED one-wire dispatch
         (2 host fetches per window).  An overflowing window re-sizes
         exactly and re-dispatches once."""
         big, tots, ovf, oc_all = self.dispatch_window_packed(gs, ge)
-        if bool(ovf.item()):
-            for ji in range(len(self.jobs)):
-                self._caps[(ji, ge - gs)] = self._size(ji, gs, ge, slack=1.0)
+        if self._overflowed(ovf):
+            with tracing.span("column.resize"):
+                for ji in range(len(self.jobs)):
+                    self._caps[(ji, ge - gs)] = self._size(ji, gs, ge,
+                                                           slack=1.0)
             big, tots, ovf, oc_all = self.dispatch_window_packed(gs, ge)
-            if bool(ovf.item()):
+            if self._overflowed(ovf):
                 raise RuntimeError("column window overflow under exact host "
                                    "sizing")
-        return self.collect_packed(big.cpu().numpy(), tots.cpu().numpy(),
-                                   oc_all, gs, ge)
+        with tracing.span("column.drain"):
+            big_np, tots_np = big.cpu().numpy(), tots.cpu().numpy()
+        if tracing.on:
+            tracing.count("column.frag_cols", int(tots_np.sum()))
+            tracing.count("column.drain_cols", sum(oc_all))
+        return self.collect_packed(big_np, tots_np, oc_all, gs, ge)
 
     def _postsplit(self, frags: dict) -> dict:
         # cut-superset: split every target's fragments at both of its own
         # grids (host; see the original's module docstring)
-        for t, parts in frags.items():
-            g = self.aln.open_genome(t)
-            split = []
-            for (o, st_) in parts:
-                if g.num_top_segments:
-                    st_, _s, _t2 = self.sim._split(st_, g.top_start)
-                if g.num_bottom_segments:
-                    st_, _s, _t2 = self.sim._split(st_, g.bot_start)
-                if len(st_.s_lo):
-                    split.append((o, st_))
-            frags[t] = split
+        with tracing.span("column.postsplit"):
+            for t, parts in frags.items():
+                g = self.aln.open_genome(t)
+                split = []
+                for (o, st_) in parts:
+                    if g.num_top_segments:
+                        st_, _s, _t2 = self.sim._split(st_, g.top_start)
+                    if g.num_bottom_segments:
+                        st_, _s, _t2 = self.sim._split(st_, g.bot_start)
+                    if len(st_.s_lo):
+                        split.append((o, st_))
+                frags[t] = split
         return frags
 
     def window_slices(self, gs: int, ge: int):
