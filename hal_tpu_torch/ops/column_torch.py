@@ -28,9 +28,13 @@ A window's steps record hal_tpu_torch.tracing spans: column.dispatch
 (sizing a new width and launching every program), column.sync (the
 overflow flag's read), column.resize (the exact re-sizing after an
 overflow), column.drain (the two fetches), column.collect (the
-per-program decode and the identity rows) and column.postsplit; the
-counters column.frag_cols and column.drain_cols add up the fragments the
-programs produced and the columns the drain copied.
+per-program decode and the identity rows) and column.postsplit (the
+host cuts at the target grids a program's last level did not already
+respect, split_plan); the counters column.frag_cols and
+column.drain_cols add up the fragments the programs produced and the
+columns the drain copied, column.postsplit_frags and
+column.postsplit_skipped the fragments the post-split cut and those whose
+cuts the plan left out.
 
 Dtype rule (segmap_torch): the engine picks int32, uint32 or int64 as the
 JAX package does, from the scope's genome sizes; uint32 levels run as
@@ -47,6 +51,7 @@ C++ or exact-Python paths instead (tools/hal2maf.py chooses).
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -604,6 +609,82 @@ def _identity(gs: int, ge: int) -> _St:
     return _St(z + gs, z + gs, z + (ge - gs), np.zeros(1, np.int64), z.copy())
 
 
+def split_plan(aln: Alignment, sim: ColumnHostSim, programs,
+               cache: dict) -> dict:
+    """{(target, ordinal) -> grids}: the target's segment grids
+    ("top_start", "bot_start", in that order) that the cut-superset
+    post-split cuts a program's fragments at.
+
+    A grid the target lacks is left out, as is the grid the program's last
+    level lands on (the top grid after down, downnr and selfring, the
+    bottom grid after up and upc) where that level leaves every fragment
+    inside one of its segments: a fragment is cut at the source grid
+    before it hops, so that holds when every link the level can follow
+    joins two segments of equal length and every ring member it can emit
+    has its source's length, and then the cut changes nothing.  The
+    identity program (no ops) keeps both grids.  `cache` maps a last op
+    to that check's result; the checks' passes over the genomes' arrays
+    run on a thread pool (numpy releases the GIL in them)."""
+    def landed(op):
+        return "bot_start" if op[0] in ("up", "upc") else "top_start"
+
+    have = {}
+    for t in programs:
+        g = aln.open_genome(t)
+        have[t] = tuple(grid for grid, n in (
+            ("top_start", g.num_top_segments),
+            ("bot_start", g.num_bottom_segments)) if n)
+    ops = sorted({s.ops[-1] for t, specs in programs.items() for s in specs
+                  if s.ops and s.ops[-1][-1] == t
+                  and landed(s.ops[-1]) in have[t]} - cache.keys())
+    # per op: the (genome, grid) pairs its links join, and the genome
+    # whose ring members it emits
+    links, rings = {}, {}
+    for op in ops:
+        kind, cur, nxt = op[0], op[1], op[-1]
+        g = aln.open_genome(cur)
+        if kind in ("up", "upc"):
+            links[op] = ((cur, "top_start"), g.top_parent[:g.num_top_segments],
+                         (nxt, "bot_start"))
+        elif kind == "selfring":
+            rings[op] = cur
+        else:
+            nb = g.num_bottom_segments
+            link = (g.bot_child[:nb, aln.tree.child_index(cur, nxt)] if nb
+                    else np.zeros(0, np.int64))
+            links[op] = ((cur, "bot_start"), link, (nxt, "top_start"))
+            if kind == "down":
+                rings[op] = nxt
+    csrs = {n: sim.csr(n) for n in rings.values()}
+    starts = {k: getattr(aln.open_genome(k[0]), k[1]) for k in
+              {k for src, _l, dst in links.values() for k in (src, dst)}
+              | {(n, "top_start") for n in rings.values()}}
+
+    def check(op):
+        if op in links:
+            src, link, dst = links[op]
+            # a NULL link (-1) reads the last length; only linked rows count
+            bad = np.flatnonzero(lens[dst][link] != lens[src])
+            if not (link[bad] == NULL_INDEX).all():
+                return False
+        if op in rings:
+            # the CSR lists the members source by source, in source order
+            csr, ln = csrs[rings[op]], lens[rings[op], "top_start"]
+            return np.array_equal(ln[csr.rm], np.repeat(ln, csr.rc))
+        return True
+
+    with ThreadPoolExecutor() as ex:
+        lens = dict(zip(starts, ex.map(np.diff, starts.values())))
+        cache.update(zip(ops, ex.map(check, ops)))
+    plan = {}
+    for t, specs in programs.items():
+        for s in specs:
+            op = s.ops[-1] if s.ops else None
+            done = landed(op) if op and op[-1] == t and cache.get(op) else None
+            plan[t, s.ordinal] = tuple(x for x in have[t] if x != done)
+    return plan
+
+
 class DeviceColumnEngine:
     """Column construction on the device for a reference genome's windows.
 
@@ -666,6 +747,9 @@ class DeviceColumnEngine:
                                                device=self.device,
                                                cache=self.levels),
                                   level_meta(self.sim, spec)))
+        self.lands_inside: dict = {}  # last op -> split_plan's check
+        self.plan = split_plan(aln, self.sim, self.programs,
+                               cache=self.lands_inside)
         self._caps: dict = {}   # (job_idx, width) -> (caps, out_cols)
 
     # -- sizing ---------------------------------------------------------
@@ -759,20 +843,27 @@ class DeviceColumnEngine:
         return self.collect_packed(big_np, tots_np, oc_all, gs, ge)
 
     def _postsplit(self, frags: dict) -> dict:
-        # cut-superset: split every target's fragments at both of its own
-        # grids (host; see the original's module docstring)
+        # cut-superset: cut each program's fragments at the grids of its
+        # target that its last level did not already respect (self.plan)
+        cut = kept = 0
         with tracing.span("column.postsplit"):
             for t, parts in frags.items():
                 g = self.aln.open_genome(t)
                 split = []
                 for (o, st_) in parts:
-                    if g.num_top_segments:
-                        st_, _s, _t2 = self.sim._split(st_, g.top_start)
-                    if g.num_bottom_segments:
-                        st_, _s, _t2 = self.sim._split(st_, g.bot_start)
+                    grids = self.plan[t, o]
+                    if grids:
+                        cut += len(st_.s_lo)
+                    else:
+                        kept += len(st_.s_lo)
+                    for grid in grids:
+                        st_, _s, _t2 = self.sim._split(st_, getattr(g, grid))
                     if len(st_.s_lo):
                         split.append((o, st_))
                 frags[t] = split
+        if tracing.on:
+            tracing.count("column.postsplit_frags", cut)
+            tracing.count("column.postsplit_skipped", kept)
         return frags
 
     def window_slices(self, gs: int, ge: int):

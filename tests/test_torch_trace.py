@@ -4,8 +4,9 @@ exports a region (DeviceColumnEngine.export_native into a new
 NativeMafExporter, then finish and close).  Off, it records nothing; on,
 it records each named step of the window once, inside the call that runs
 it (the dispatch and its wait twice, with the re-size between, where the
-capacities overflow), counts the programs' fragments, and leaves the MAF
-bytes and the device reads of the window as they are."""
+capacities overflow), counts the programs' fragments and those the
+post-split cuts or leaves as they are, and leaves the MAF bytes and the
+device reads of the window as they are."""
 
 import pytest
 import torch
@@ -14,13 +15,15 @@ from hal_tpu_torch import tracing
 from hal_tpu_torch.ops import column_native
 from hal_tpu_torch.ops import column_torch as ct
 from hal_tpu_torch.randgen import create_random_alignment
+from test_torch_postsplit import star
 
 SEEDS = (11, 42, 77)
 COLUMN = ("column.dispatch", "column.sync", "column.drain", "column.collect",
           "column.postsplit")
 ASSEMBLY = ("assembly.gather", "assembly.sort", "assembly.entry_machine")
 EXPORTER = ("assembly.init", "assembly.close")
-COUNTERS = ("column.frag_cols", "column.drain_cols")
+COUNTERS = ("column.frag_cols", "column.drain_cols",
+            "column.postsplit_frags", "column.postsplit_skipped")
 
 _ENGINES: dict = {}
 
@@ -119,6 +122,52 @@ def test_frag_cols_counts_the_programs_fragments(seed, monkeypatch):
     identity = sum(1 for spec in eng.programs.get(ref, []) if not spec.ops)
     assert seen and counts["column.frag_cols"] == seen[0] - identity
     assert counts["column.frag_cols"] <= counts["column.drain_cols"]
+
+
+def _received(monkeypatch):
+    """{(target, ordinal): fragments} of each call of _postsplit."""
+    seen = []
+    orig = ct.DeviceColumnEngine._postsplit
+
+    def postsplit(self, frags):
+        seen.append({(t, o): len(st_.s_lo) for t, parts in frags.items()
+                     for o, st_ in parts})
+        return orig(self, frags)
+    monkeypatch.setattr(ct.DeviceColumnEngine, "_postsplit", postsplit)
+    return seen
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_postsplit_counters_add_up_to_what_it_received(seed, monkeypatch):
+    """column.postsplit_frags counts the fragments of the programs whose
+    split plan keeps a grid (on these deeper trees, ancestors reached by
+    down and the identity row), column.postsplit_skipped the rest."""
+    _aln, _ref, eng = _engine(seed)
+    seen = _received(monkeypatch)
+    tracing.enable()
+    _window(seed)
+    _spans, counts = tracing.take()
+    (got,) = seen
+    cut = sum(n for k, n in got.items() if eng.plan[k])
+    assert counts["column.postsplit_frags"] == cut > 0
+    assert counts["column.postsplit_skipped"] == sum(got.values()) - cut > 0
+
+
+def test_star_tree_counts_all_but_the_identity_row_as_skipped(monkeypatch):
+    """On the benchmark's star tree the plan cuts the identity row alone,
+    one fragment; off, nothing is recorded."""
+    aln, ref = star(3100000001)
+    eng = ct.DeviceColumnEngine(aln, ref, device="cpu")
+    ge = int(aln.open_genome(ref).length)
+    seen = _received(monkeypatch)
+    eng.window_frags(0, ge)
+    assert tracing.take() == ([], {})
+    tracing.enable()
+    eng.window_frags(0, ge)
+    _spans, counts = tracing.take()
+    n = sum(seen[-1].values())
+    assert counts["column.postsplit_frags"] == 1
+    assert counts["column.postsplit_skipped"] == n - 1 > 1000
 
 
 @pytest.mark.parametrize("seed", SEEDS)
