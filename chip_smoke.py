@@ -10,9 +10,10 @@
 Phases (any failure raises and exits non-zero; nothing is caught), each
 printing its seconds:
   1. build the CUDA kernels from hal_tpu_torch/csrc with nvcc (sm_90a), and
-     load the port's native host bindings, which build their libraries from
-     native/ with g++ (no -march=native: hal_tpu_torch.ops._native_build)
-     into hal_tpu_torch/build/ at first use, as every port CLI does;
+     load the port's native host bindings, which build their libraries
+     (native/haltpu.cpp and the port's hal_tpu_torch/csrc/column_engine.cpp)
+     with g++ (no -march=native: hal_tpu_torch.ops._native_build) into
+     hal_tpu_torch/build/ at first use, as every port CLI does;
   2. each kernel against its plain PyTorch version on the card, exact
      integer equality (searchsorted at grids around its sector, fence
      and tree-level edges up to its grid limit, with duplicates, misaligned
@@ -371,7 +372,7 @@ def phase_build() -> None:
     from hal_tpu_torch.ops import column_native
 
     for what, mod, source in (("column engine", column_native,
-                               "column_engine.cpp"),
+                               column_native.SOURCE),
                               ("runtime", native, "haltpu.cpp")):
         want = str(_native_build.library_path(source))
         t0 = time.perf_counter()
@@ -380,9 +381,9 @@ def phase_build() -> None:
             raise AssertionError("native %s: %s not loaded (got %s)"
                                  % (what, want,
                                     None if lib is None else lib._name))
-        log("  native %s: native/%s built and loaded from %s in %.2fs"
-            % (what, source, os.path.relpath(lib._name, REPO),
-               time.perf_counter() - t0))
+        log("  native %s: %s built and loaded from %s in %.2fs"
+            % (what, os.path.relpath(_native_build.NATIVE_DIR / source, REPO),
+               os.path.relpath(lib._name, REPO), time.perf_counter() - t0))
 
 
 def phase_kernels(dev) -> dict:

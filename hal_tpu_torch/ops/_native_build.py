@@ -1,5 +1,5 @@
-"""Build the repository's native host libraries (native/*.cpp) for the CPU
-this process runs on.
+"""Build the repository's native host libraries for the CPU this process
+runs on.
 
 The libraries tracked in native/ are built by native/Makefile with
 -march=native, for the machine that built them; on another CPU they may
@@ -7,14 +7,15 @@ fail to load or stop on an illegal instruction.  This helper compiles a
 source with the same compiler and no -march:
 
     g++ -O3 -fPIC -std=c++17 -shared \\
-        -o hal_tpu_torch/build/<name>_<hash>.so native/<source>
+        -o hal_tpu_torch/build/<name>_<hash>.so <source>
 
 at first use, keyed by a hash of the source and the flags (an unchanged
-source loads the library already built).  The bindings call build() when
-they first load: hal_tpu_torch.native (haltpu.cpp) and
-hal_tpu_torch.ops.column_native (column_engine.cpp, unless
-HALTPU_COLUMN_LIB names another library).  A failed build raises; nothing
-falls back.  native/ is only read.
+source loads the library already built).  A source is a file name in
+native/ or a path: hal_tpu_torch.native builds native/haltpu.cpp, and
+hal_tpu_torch.ops.column_native the port's own column engine,
+hal_tpu_torch/csrc/column_engine.cpp (unless HALTPU_COLUMN_LIB names
+another library).  A failed build raises; nothing falls back.  native/ is
+only read.
 """
 
 from __future__ import annotations
@@ -40,15 +41,16 @@ def _cxx() -> str:
                        "libraries cannot be built")
 
 
-def library_path(source: str) -> Path:
-    src = NATIVE_DIR / source
+def library_path(source: str | Path) -> Path:
+    src = NATIVE_DIR / source  # a path given whole stays as it is
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     h.update(src.read_bytes())
     return BUILD_DIR / ("%s_%s.so" % (src.stem, h.hexdigest()[:16]))
 
 
-def build(source: str) -> Path:
-    """Compile native/<source> unless the library for it exists."""
+def build(source: str | Path) -> Path:
+    """Compile native/<source>, or the source at a path, unless the library
+    for it exists."""
     so = library_path(source)
     if so.exists():
         return so

@@ -1,17 +1,28 @@
 """Port copy of hal_tpu/ops/column_native.py (numpy only; the same code, imports
-pointing at hal_tpu_torch), except that without a HALTPU_COLUMN_LIB override
-the library it loads is built from native/column_engine.cpp at first use
-for the CPU this process runs on (hal_tpu_torch.ops._native_build), not the
-tracked native/libhalcolumn.so, which native/Makefile builds with
--march=native.  A failed build raises.  NativeMafExporter also records
-hal_tpu_torch.tracing spans: assembly.init (construction), assembly.close
-(freeing the handle), and export_frags's steps assembly.gather (the
-per-target rows and their sequence lookups), assembly.sort (row
-precedence and the cuts) and assembly.entry_machine (ce_export_frags and
-the copy of its text).
+pointing at hal_tpu_torch), except in two ways.
 
-ctypes binding for the native exact hal2maf column engine
-(native/column_engine.cpp; built as native/libhalcolumn.so).
+Without a HALTPU_COLUMN_LIB override the library it loads is built from
+the port's own copy of the engine, hal_tpu_torch/csrc/column_engine.cpp,
+at first use for the CPU this process runs on
+(hal_tpu_torch.ops._native_build), not the tracked native/libhalcolumn.so,
+which native/Makefile builds with -march=native.  A failed build raises.
+
+export_frags assembles in two calls: ce_plan_frags runs the block machine
+over the window's fragments without writing text and returns the text's
+exact size, then ce_write_frags writes each closed block once at its
+offset.  The block left open at the end is staged as the original stages
+it, for the next window or finish().  The bytes are the original's.
+
+NativeMafExporter records hal_tpu_torch.tracing spans: assembly.init
+(construction), assembly.close (freeing the handle), and export_frags's
+steps assembly.gather (the per-target rows and their sequence lookups),
+assembly.sort (row precedence and the cuts) and assembly.entry_machine,
+which holds assembly.plan (ce_plan_frags) and assembly.write
+(ce_write_frags and the copy of its text); and the counters
+assembly.direct_cols (columns of blocks that closed in the window, written
+directly) and assembly.staged_cols (columns of the block left open).
+
+ctypes binding for the native exact hal2maf column engine.
 
 The engine is the C++ twin of iter_slices_exact + MafBlockBuilder — same
 run-hoisted DFS, same MAF entry state machine — reading the columnar genome
@@ -27,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from pathlib import Path
 
 import numpy as np
 
@@ -37,6 +49,9 @@ _tried = False
 
 _I64 = ctypes.POINTER(ctypes.c_int64)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
+
+# the port's copy of native/column_engine.cpp
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "column_engine.cpp"
 
 
 def _load():
@@ -58,7 +73,7 @@ def _load():
     else:
         from hal_tpu_torch.ops import _native_build
 
-        lib = ctypes.CDLL(str(_native_build.build("column_engine.cpp")))
+        lib = ctypes.CDLL(str(_native_build.build(SOURCE)))
         _tried = True
     lib.ce_new.restype = ctypes.c_void_p
     lib.ce_new.argtypes = [ctypes.c_int64] * 4
@@ -77,10 +92,12 @@ def _load():
     lib.ce_export.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
     lib.ce_finish.restype = ctypes.c_int64
     lib.ce_finish.argtypes = [ctypes.c_void_p]
-    lib.ce_export_frags.restype = ctypes.c_int64
-    lib.ce_export_frags.argtypes = [
-        ctypes.c_void_p, ctypes.c_int64, _I64, _I64, _I64, _U8, _I64,
-        ctypes.c_int64, _I64]
+    lib.ce_plan_frags.restype = ctypes.c_int64
+    lib.ce_plan_frags.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _I64, _I64, _I64, _U8, _I64, _I64,
+        ctypes.c_int64, _I64, _I64]
+    lib.ce_write_frags.restype = ctypes.c_int64
+    lib.ce_write_frags.argtypes = [ctypes.c_void_p]
     lib.ce_set_opts.restype = None
     lib.ce_set_opts.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                 ctypes.c_int64]
@@ -226,8 +243,9 @@ class NativeMafExporter:
         """MAF bytes for [gs, ge) assembled from KEYED FRAGMENTS (the
         device column engine's product, hal_tpu_torch.ops.column_torch): fragments
         are sorted host-side into global row precedence (genome name rank,
-        sequence, DFS program ordinal, DFS key) and swept through the same
-        native MAF entry machine ce_export drives — byte-equal output.
+        sequence, DFS program ordinal, DFS key), planned through the same
+        native MAF entry machine ce_export drives, then written once —
+        byte-equal output.
 
         frags_by_target: {genome -> [(ordinal, _St), ...]}."""
         tree = self._aln.tree
@@ -261,8 +279,8 @@ class NativeMafExporter:
             rev = np.concatenate(cols["rev"]).astype(np.uint8)
         with tracing.span("assembly.sort"):
             order = np.lexsort((key, o, seq, gd))
-            s, tl, ln, gd, rev = s[order], tl[order], ln[order], gd[order], \
-                rev[order]
+            s, tl, ln, gd, seq, rev = (s[order], tl[order], ln[order],
+                                       gd[order], seq[order], rev[order])
             cuts = np.unique(np.concatenate([s, s + ln, [gs, ge]]))
             cuts = cuts[(cuts >= gs) & (cuts <= ge)]
         with tracing.span("assembly.entry_machine"):
@@ -271,14 +289,24 @@ class NativeMafExporter:
             l_c, p_l = _c64(ln)
             r_c, p_r = _cu8(rev)
             g_c, p_g = _c64(gd)
+            q_c, p_q = _c64(seq)
             c_c, p_c = _c64(cuts)
-            n = self._lib.ce_export_frags(
-                ctypes.c_void_p(self._h), len(s), p_s, p_t, p_l, p_r, p_g,
-                len(cuts), p_c)
-            if n < 0:
-                raise RuntimeError("native fragment assembler failed on "
-                                   "[%d, %d)" % (gs, ge))
-            return self._export_bytes(int(n))
+            cols, p_cols = _c64(np.zeros(2, np.int64))
+            h = ctypes.c_void_p(self._h)
+            with tracing.span("assembly.plan"):
+                n = self._lib.ce_plan_frags(h, len(s), p_s, p_t, p_l, p_r,
+                                            p_g, p_q, len(cuts), p_c, p_cols)
+            with tracing.span("assembly.write"):
+                if n >= 0:
+                    n = self._lib.ce_write_frags(h)
+                if n < 0:
+                    raise RuntimeError("native fragment assembler failed on "
+                                       "[%d, %d)" % (gs, ge))
+                out = self._export_bytes(int(n))
+            if tracing.on:
+                tracing.count("assembly.direct_cols", int(cols[0]))
+                tracing.count("assembly.staged_cols", int(cols[1]))
+            return out
 
     def export(self, gs: int, ge: int) -> bytes:
         n = self._lib.ce_export(ctypes.c_void_p(self._h), int(gs), int(ge))

@@ -4,9 +4,13 @@ exports a region (DeviceColumnEngine.export_native into a new
 NativeMafExporter, then finish and close).  Off, it records nothing; on,
 it records each named step of the window once, inside the call that runs
 it (the dispatch and its wait twice, with the re-size between, where the
-capacities overflow), counts the programs' fragments and those the
-post-split cuts or leaves as they are, and leaves the MAF bytes and the
-device reads of the window as they are."""
+capacities overflow; the assembler's plan and write inside its entry
+machine), counts the programs' fragments and those the post-split cuts
+or leaves as they are, and the columns the assembler wrote directly or
+left staged in the open block, and leaves the MAF bytes and the device
+reads of the window as they are."""
+
+import numpy as np
 
 import pytest
 import torch
@@ -20,10 +24,12 @@ from test_torch_postsplit import star
 SEEDS = (11, 42, 77)
 COLUMN = ("column.dispatch", "column.sync", "column.drain", "column.collect",
           "column.postsplit")
-ASSEMBLY = ("assembly.gather", "assembly.sort", "assembly.entry_machine")
+ASSEMBLY = ("assembly.gather", "assembly.sort", "assembly.entry_machine",
+            "assembly.plan", "assembly.write")
 EXPORTER = ("assembly.init", "assembly.close")
 COUNTERS = ("column.frag_cols", "column.drain_cols",
-            "column.postsplit_frags", "column.postsplit_skipped")
+            "column.postsplit_frags", "column.postsplit_skipped",
+            "assembly.direct_cols", "assembly.staged_cols")
 
 _ENGINES: dict = {}
 
@@ -102,6 +108,9 @@ def test_each_step_is_recorded_once_inside_its_call(seed, monkeypatch):
         assert w0 <= at[name][0] <= at[name][1] <= w1, name
     for name in ASSEMBLY:
         assert x0 <= at[name][0] <= at[name][1] <= x1, name
+    m0, m1 = at["assembly.entry_machine"]
+    assert m0 <= at["assembly.plan"][0] <= at["assembly.plan"][1] \
+        <= at["assembly.write"][0] <= at["assembly.write"][1] <= m1
     assert at["assembly.init"][1] <= w0 and at["assembly.close"][0] >= x1
 
 
@@ -122,6 +131,41 @@ def test_frag_cols_counts_the_programs_fragments(seed, monkeypatch):
     identity = sum(1 for spec in eng.programs.get(ref, []) if not spec.ops)
     assert seen and counts["column.frag_cols"] == seen[0] - identity
     assert counts["column.frag_cols"] <= counts["column.drain_cols"]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_direct_and_staged_cols_are_the_assembled_columns(seed, monkeypatch):
+    """assembly.direct_cols + assembly.staged_cols are the columns of the
+    window that some fragment covers; staged_cols the width of the block
+    left open, which finish() prints."""
+    aln, ref, eng = _engine(seed)
+    seen = []
+    orig = column_native.NativeMafExporter.export_frags
+
+    def export_frags(self, gs, ge, frags, **kw):
+        seen.append((gs, ge, frags))
+        return orig(self, gs, ge, frags, **kw)
+    monkeypatch.setattr(column_native.NativeMafExporter, "export_frags",
+                        export_frags)
+    ge = int(aln.open_genome(ref).length)
+    ex = column_native.NativeMafExporter(aln, ref)
+    tracing.enable()
+    try:
+        eng.export_native(ex, 0, ge)
+        counts = tracing.take()[1]
+        tail = ex.finish()
+    finally:
+        ex.close()
+    (gs, ge, frags), = seen
+    covered = np.zeros(ge - gs, bool)
+    for parts in frags.values():
+        for _o, st_ in parts:
+            for s, n in zip(st_.s_lo, st_.ln):
+                covered[max(s, gs) - gs:min(s + n, ge) - gs] = True
+    assert counts["assembly.direct_cols"] + counts["assembly.staged_cols"] \
+        == covered.sum() > 0
+    last = tail.decode().split("\n")[1].split("\t")[-1]
+    assert counts["assembly.staged_cols"] == len(last) > 0
 
 
 def _received(monkeypatch):
