@@ -21,12 +21,13 @@
 // oracle: tests assert byte equality against the pure-Python path on every
 // flag combination, and against the original library.
 //
-// The one divergence from the original is the fragment assembler that the
-// device column engine feeds (plan_frags / write_planned, ce_plan_frags /
-// ce_write_frags): it plans a window's blocks through the same block
-// machine without writing text, then writes every closed block once at
-// its final offset in an exact-size buffer.  The host DFS paths
-// (ce_export) keep the staged text sink and the original's bytes and code.
+// The one divergence from the original is the block machine's text sink:
+// every call plans its blocks without writing text, then writes every
+// closed block once at its final offset in an exact-size buffer
+// (begin_plan, end_plan, write_planned).  The fragment assembler that the
+// device column engine feeds splits the two (ce_plan_frags /
+// ce_write_frags); the host DFS paths (ce_export) and ce_finish plan and
+// write in one call.  The bytes are the original's.
 //
 // --maxRefGap indel stacks (ColumnDFS eval_del_site/eval_ins_site + the
 // iter_slices_exact stack walker) and the --global shared visit cache
@@ -62,11 +63,6 @@ struct CompTable {
 };
 const CompTable COMP;
 
-inline char base_at(const uint8_t* dna, int64_t i) {
-  uint8_t byte = dna[i >> 1];
-  return UNPACK[(i & 1) ? (byte & 0xF) : (byte >> 4)];
-}
-
 // packed byte -> its two bases in position order (high nibble, then low),
 // and in reverse-complement order (the low nibble's complement, then the
 // high one's): the write pass decodes two positions a byte
@@ -84,7 +80,7 @@ struct PairTable {
 };
 const PairTable PAIRS;
 
-// the k bases from position lo upwards (append_text's forward loop)
+// the k bases from position lo upwards
 inline void put_fwd(char* dst, const uint8_t* dna, int64_t lo, int64_t k) {
   if (k > 0 && (lo & 1)) {
     *dst++ = UNPACK[dna[lo >> 1] & 0xF];
@@ -97,8 +93,7 @@ inline void put_fwd(char* dst, const uint8_t* dna, int64_t lo, int64_t k) {
   if (k & 1) *dst = UNPACK[dna[b] >> 4];
 }
 
-// the k complemented bases from position hi - 1 downwards (append_text's
-// reverse loop)
+// the k complemented bases from position hi - 1 downwards
 inline void put_rev(char* dst, const uint8_t* dna, int64_t hi, int64_t k) {
   int64_t p = hi - 1;
   if (k > 0 && !(p & 1)) {
@@ -124,7 +119,7 @@ inline int64_t gallop(const int64_t* c, int64_t n, int64_t lo, int64_t v) {
   return std::lower_bound(c + lo, c + hi, v) - c;
 }
 
-inline int64_t int_len(int64_t v) {  // characters append_int writes
+inline int64_t int_len(int64_t v) {  // characters put_int writes
   int64_t n = v < 0 ? 2 : 1;
   uint64_t u = v < 0 ? static_cast<uint64_t>(-v) : static_cast<uint64_t>(v);
   while (u >= 10) {
@@ -134,7 +129,7 @@ inline int64_t int_len(int64_t v) {  // characters append_int writes
   return n;
 }
 
-inline char* put_int(char* p, int64_t v) {  // append_int into place
+inline char* put_int(char* p, int64_t v) {  // v in decimal at p
   int64_t n = int_len(v);
   char* q = p + n;
   bool neg = v < 0;
@@ -214,7 +209,7 @@ struct Entry {
   int64_t length = 0;
   bool neg = false;
   int last_used = 0;
-  std::string text;
+  std::string text;  // the open block's columns staged by the last call
 };
 
 // PositionCache: sorted disjoint half-open [lo, hi) interval set
@@ -282,7 +277,7 @@ struct PosCache {
   }
 };
 
-// The planned sink's records (Engine::plan_frags): a run of k columns and
+// The planned sink's records: a run of k columns and
 // its rows, each naming the entry slot it feeds and its DNA; a printed
 // line; a closed block with its exact size and offset in the text.
 struct PRow {
@@ -347,12 +342,12 @@ struct Engine {
   std::vector<BRow> brows;
 
   // ---------------------------------------------- the planned text sink
-  // While plan_frags runs (`planning`), the block machine records instead
-  // of appending text: each append_run is a PRun of k columns, whose PRows
-  // name the entry slot and the DNA that feeds it ('-' where no row does),
-  // and each printed block a PBlock of PLines with the block's exact size
-  // and offset.  write_planned then writes every block at its offset.
-  bool planning = false, plan_error = false;
+  // The block machine records instead of appending text: each append_run
+  // is a PRun of k columns, whose PRows name the entry slot and the DNA
+  // that feeds it ('-' where no row does), and each printed block a PBlock
+  // of PLines with the block's exact size and offset.  write_planned then
+  // writes every block at its offset.
+  bool plan_error = false;
   std::vector<PRow> prows;
   std::vector<PRun> pruns;
   std::vector<PLine> plines;
@@ -557,15 +552,13 @@ struct Engine {
     entries.resize(w);
     reference = nullptr;
     ref_index = -1;
-    if (planning) {
-      // the block closed (flush recorded its runs if it printed): what it
-      // did not record goes, as the staged sink clears its text
-      direct_cols += open_cols;
-      open_cols = 0;
-      open_prefix_w = 0;
-      pruns.resize(open_run0);
-      prows.resize(open_row0);
-    }
+    // the block closed (flush recorded its runs if it printed): what it
+    // did not record goes with its staged text
+    direct_cols += open_cols;
+    open_cols = 0;
+    open_prefix_w = 0;
+    pruns.resize(open_run0);
+    prows.resize(open_row0);
   }
 
   inline int64_t row_start_strand(const BRow& r, int64_t* src_len) const {
@@ -685,21 +678,6 @@ struct Engine {
     return budget;
   }
 
-  inline void append_text(Entry* entry, const BRow& row, int64_t k) {
-    const uint8_t* dna = g[row.gid].dna;
-    std::string& t = entry->text;
-    size_t base = t.size();
-    t.resize(base + k);
-    char* dst = &t[base];
-    if (row.rev) {
-      // columns run right-to-left from hi-1, complemented
-      for (int64_t p = row.hi - 1; p >= row.hi - k; --p)
-        *dst++ = COMP.m[static_cast<unsigned char>(base_at(dna, p))];
-    } else {
-      for (int64_t p = row.lo; p < row.lo + k; ++p) *dst++ = base_at(dna, p);
-    }
-  }
-
   // appendColumn for k columns of the current run (halMafBlock.cpp:370-395);
   // advances each row's remaining range in place
   void append_run(int64_t k) {
@@ -708,10 +686,8 @@ struct Engine {
     for (BRow& row : brows) {
       int64_t rank = g[row.gid].name_rank;
       while (e < entries.size() && !(entries[e]->key_rank == rank &&
-                                     entries[e]->key_seq == row.seq)) {
-        if (!planning) entries[e]->text.append(k, '-');
+                                     entries[e]->key_seq == row.seq))
         ++e;
-      }
       Entry* entry = entries[e].get();
       if (entry->start == -1) {
         // late joiner keeps accumulated '-' padding (initEntry
@@ -721,89 +697,43 @@ struct Engine {
         entry->neg = row.rev != 0;
       }
       entry->length += k;
-      if (planning)
-        prows.push_back({static_cast<int32_t>(e), row.gid, row.rev,
-                         row.rev ? row.hi : row.lo});
-      else
-        append_text(entry, row, k);
+      prows.push_back({static_cast<int32_t>(e), row.gid, row.rev,
+                       row.rev ? row.hi : row.lo});
       if (row.rev)
         row.hi -= k;
       else
         row.lo += k;
       ++e;
     }
-    if (planning) {
-      pruns.push_back({k, row0, prows.size()});
-      open_cols += k;
-      return;
-    }
-    for (; e < entries.size(); ++e) entries[e]->text.append(k, '-');
+    pruns.push_back({k, row0, prows.size()});
+    open_cols += k;
   }
 
-  void entry_line(const Entry* e, int64_t start_override, int32_t slot) {
-    if (planning) {
-      plan_line(e, start_override, slot);
-      return;
-    }
-    out += "s\t";
-    out += *e->name;
-    out += '\t';
-    append_int(start_override >= 0 ? start_override : e->start);
-    out += '\t';
-    append_int(e->length);
-    out += '\t';
-    out += e->neg ? '-' : '+';
-    out += '\t';
-    append_int(e->src_length);
-    out += '\t';
-    out += e->text;
-    out += '\n';
-  }
-
-  inline void append_int(int64_t v) {
-    char buf[24];
-    char* p = buf + 24;
-    bool neg = v < 0;
-    uint64_t u = neg ? static_cast<uint64_t>(-v) : static_cast<uint64_t>(v);
-    do {
-      *--p = static_cast<char>('0' + (u % 10));
-      u /= 10;
-    } while (u);
-    if (neg) *--p = '-';
-    out.append(p, buf + 24 - p);
-  }
-
-  // printBlock (halMafBlock.cpp:499-519); emits block + trailing '\n'
+  // printBlock (halMafBlock.cpp:499-519); plans block + trailing '\n'
   // (the tool writes `block + "\n"` per yielded block)
   bool flush() {
     if (reference == nullptr) return false;
     if (!keep_empty_ref_blocks && !has_bases(reference)) return false;
-    if (planning)
-      plan_block();
-    else
-      out += "a\n";
-    int32_t ref_slot = planning ? slot_of(reference) : -1;
+    plan_block();
+    int32_t ref_slot = slot_of(reference);
     if (reference->start == -1) {
-      if (ref_index >= 0) entry_line(reference, ref_index, ref_slot);
+      if (ref_index >= 0) plan_line(reference, ref_index, ref_slot);
     } else {
-      entry_line(reference, -1, ref_slot);
+      plan_line(reference, -1, ref_slot);
     }
     for (size_t i = 0; i < entries.size(); ++i) {
       const Entry* e = entries[i].get();
       if (e->start != -1 && e != reference)
-        entry_line(e, -1, static_cast<int32_t>(i));
+        plan_line(e, -1, static_cast<int32_t>(i));
     }
-    if (planning)
-      end_planned_block();
-    else
-      out += '\n';
+    end_planned_block();
     return true;
   }
 
-  // whether the entry's text holds a base, not '-' alone
+  // whether the entry's line holds a base, not '-' alone: in its staged
+  // text or in a run of this plan
   bool has_bases(const Entry* e) const {
     if (e->text.find_first_not_of('-') != std::string::npos) return true;
-    if (!planning) return false;
     int32_t slot = slot_of(e);
     for (size_t j = open_row0; j < prows.size(); ++j)
       if (prows[j].slot == slot) return true;
@@ -829,7 +759,7 @@ struct Engine {
     pblocks.push_back(b);
   }
 
-  // entry_line's sizes: "s\t" name "\t" start "\t" length "\t" strand
+  // a line's sizes: "s\t" name "\t" start "\t" length "\t" strand
   // "\t" srcLength "\t" text "\n"
   void plan_line(const Entry* e, int64_t start_override, int32_t slot) {
     PBlock& b = pblocks.back();
@@ -926,8 +856,8 @@ struct Engine {
   }
 
   // the block left open at the end of a plan: its runs become staged text
-  // (every entry padded, as append_run pads), which the next window or
-  // finish() continues as the staged sink would
+  // (every entry padded), which the next call's plan carries as the
+  // block's prefix
   void stage_open_block() {
     line_dst.clear();
     for (size_t i = 0; i < entries.size(); ++i) {
@@ -955,6 +885,29 @@ struct Engine {
     plan_error = false;
   }
 
+  bool any_open() const {
+    for (auto& e : entries)
+      if (e->start != -1) return true;
+    return false;
+  }
+
+  // every call runs the block machine between begin_plan and end_plan,
+  // then write_planned appends the text.  `started` is recomputed as
+  // Python feed() does on entry, and the block the last call left open
+  // carries its staged text (open_prefix_w columns) into this plan
+  void begin_plan() {
+    started = reference != nullptr && any_open();
+    clear_plan();
+    open_prefix_w =
+        entries.empty() ? 0 : static_cast<int64_t>(entries[0]->text.size());
+  }
+
+  // stages the block left open; returns the planned text's size, or -1
+  int64_t end_plan() {
+    stage_open_block();
+    return plan_error ? -1 : planned_bytes;
+  }
+
   // ------------------------------------------------------------- feed loop
   // mirror of MafBlockBuilder.feed for one run (maf_io.py:383-407)
   void feed_run(int64_t pos, int64_t width) {
@@ -979,17 +932,6 @@ struct Engine {
   }
 
   int export_window(int64_t gs, int64_t ge) {
-    // `started` recomputed like Python feed() does on entry
-    started = reference != nullptr;
-    if (started) {
-      bool any = false;
-      for (auto& e : entries)
-        if (e->start != -1) {
-          any = true;
-          break;
-        }
-      started = any;
-    }
     int64_t pos = gs;
     while (pos < ge) {
       run_dfs(pos);
@@ -1227,16 +1169,6 @@ struct Engine {
 
   // iter_slices_exact with max_ref_gap > 0 (column.py:721-816)
   int export_window_indel(int64_t gs, int64_t ge) {
-    started = reference != nullptr;
-    if (started) {
-      bool any = false;
-      for (auto& e : entries)
-        if (e->start != -1) {
-          any = true;
-          break;
-        }
-      started = any;
-    }
     track_visits = true;
     visit.clear();
     std::vector<StackE> stack;
@@ -1349,16 +1281,6 @@ struct Engine {
   // iter_slices_exact shared_visit branch (column.py:756-796) — one
   // --global pass for the current ref; shared_visit persists across refs
   int export_window_global(int64_t gs, int64_t ge) {
-    started = reference != nullptr;
-    if (started) {
-      bool any = false;
-      for (auto& e : entries)
-        if (e->start != -1) {
-          any = true;
-          break;
-        }
-      started = any;
-    }
     track_visits = true;
     int64_t pos = gs;
     std::vector<char> bad;
@@ -1431,28 +1353,12 @@ struct Engine {
   // DFS program ordinal, DFS key) and pre-filtered, with each one's
   // sequence; `cuts` holds every fragment start and end in the window.
   // plan_frags cuts them into atomic slices and drives the same block
-  // machine the DFS path uses into the planned sink; write_planned then
-  // writes the text, so the bytes match ce_export / the exact-Python path
-  // for the covered flag surface.  Returns the planned text's size, or -1.
-  int64_t plan_frags(int64_t n_frag, const int64_t* fs_lo,
-                     const int64_t* ft_lo, const int64_t* fln,
-                     const uint8_t* frev, const int64_t* fgid,
-                     const int64_t* fseq, int64_t n_cuts,
-                     const int64_t* cuts) {
-    started = reference != nullptr;
-    if (started) {
-      bool any = false;
-      for (auto& e : entries)
-        if (e->start != -1) {
-          any = true;
-          break;
-        }
-      started = any;
-    }
-    clear_plan();
-    planning = true;
-    open_prefix_w =
-        entries.empty() ? 0 : static_cast<int64_t>(entries[0]->text.size());
+  // machine the DFS path uses, so the bytes match ce_export / the
+  // exact-Python path for the covered flag surface.
+  void plan_frags(int64_t n_frag, const int64_t* fs_lo,
+                  const int64_t* ft_lo, const int64_t* fln,
+                  const uint8_t* frev, const int64_t* fgid,
+                  const int64_t* fseq, int64_t n_cuts, const int64_t* cuts) {
     // cover: interval ci = [cuts[ci], cuts[ci + 1]) holds fragment f when
     // f starts at or before it and ends after its start; counting, a
     // prefix sum and a fill in fragment order leave each interval's rows
@@ -1510,9 +1416,6 @@ struct Engine {
       }
       feed_run(a, b - a);
     }
-    stage_open_block();
-    planning = false;
-    return plan_error ? -1 : planned_bytes;
   }
 
   // the planned blocks' text, each block at its offset in one exact-size
@@ -1529,13 +1432,7 @@ struct Engine {
   }
 
   void finish() {  // flush_end (maf_io.py:409-416)
-    bool any = false;
-    for (auto& e : entries)
-      if (e->start != -1) {
-        any = true;
-        break;
-      }
-    if (any) {
+    if (any_open()) {
       flush();
       reset_entries();
     }
@@ -1610,8 +1507,10 @@ void ce_add_genome(void* h, int64_t gid, const char* name, int64_t parent_gid,
   t.is_leaf = is_leaf != 0;
 }
 
+// ce_export and ce_finish return out's size, or -1
 int64_t ce_export(void* h, int64_t gs, int64_t ge) {
   Engine* e = static_cast<Engine*>(h);
+  e->begin_plan();
   int rc;
   if (e->global_mode)
     rc = e->export_window_global(gs, ge);
@@ -1619,8 +1518,8 @@ int64_t ce_export(void* h, int64_t gs, int64_t ge) {
     rc = e->export_window_indel(gs, ge);
   else
     rc = e->export_window(gs, ge);
-  if (rc != 0) return -1;
-  return static_cast<int64_t>(e->out.size());
+  if (e->end_plan() < 0 || rc != 0) return -1;
+  return e->write_planned();
 }
 
 void ce_set_opts(void* h, int64_t max_ref_gap, int64_t global_mode) {
@@ -1652,8 +1551,9 @@ int64_t ce_plan_frags(void* h, int64_t n_frag, const int64_t* s_lo,
                       const int64_t* seq, int64_t n_cuts, const int64_t* cuts,
                       int64_t* cols) {
   Engine* e = static_cast<Engine*>(h);
-  int64_t n =
-      e->plan_frags(n_frag, s_lo, t_lo, ln, rev, gid, seq, n_cuts, cuts);
+  e->begin_plan();
+  e->plan_frags(n_frag, s_lo, t_lo, ln, rev, gid, seq, n_cuts, cuts);
+  int64_t n = e->end_plan();
   cols[0] = e->direct_cols;
   cols[1] = e->staged_cols;
   return n;
@@ -1666,8 +1566,10 @@ int64_t ce_write_frags(void* h) {
 
 int64_t ce_finish(void* h) {
   Engine* e = static_cast<Engine*>(h);
+  e->begin_plan();
   e->finish();
-  return static_cast<int64_t>(e->out.size());
+  if (e->end_plan() < 0) return -1;
+  return e->write_planned();
 }
 
 // zero-extra-copy drain: expose the buffer, then consume
@@ -1680,15 +1582,6 @@ const char* ce_data(void* h, int64_t* n) {
 void ce_consume(void* h, int64_t n) {
   Engine* e = static_cast<Engine*>(h);
   e->out.erase(0, static_cast<size_t>(n));
-}
-
-int64_t ce_read(void* h, char* dst, int64_t cap) {
-  Engine* e = static_cast<Engine*>(h);
-  int64_t n = static_cast<int64_t>(e->out.size());
-  if (n > cap) n = cap;
-  std::memcpy(dst, e->out.data(), static_cast<size_t>(n));
-  e->out.erase(0, static_cast<size_t>(n));
-  return n;
 }
 
 void ce_free(void* h) { delete static_cast<Engine*>(h); }

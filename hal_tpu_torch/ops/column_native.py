@@ -1,17 +1,26 @@
-"""Port copy of hal_tpu/ops/column_native.py (numpy only; the same code, imports
-pointing at hal_tpu_torch), except in two ways.
+"""ctypes binding of the port's native exact hal2maf column engine.
 
-Without a HALTPU_COLUMN_LIB override the library it loads is built from
-the port's own copy of the engine, hal_tpu_torch/csrc/column_engine.cpp,
-at first use for the CPU this process runs on
-(hal_tpu_torch.ops._native_build), not the tracked native/libhalcolumn.so,
-which native/Makefile builds with -march=native.  A failed build raises.
+A port copy of hal_tpu/ops/column_native.py (numpy only, imports pointing
+at hal_tpu_torch), bound to the port's own copy of the engine,
+hal_tpu_torch/csrc/column_engine.cpp.  The engine is the C++ twin of
+iter_slices_exact + MafBlockBuilder: the same run-hoisted DFS, with
+--maxRefGap indel stacks and the --global shared visit cache, and the
+same MAF entry state machine, reading the columnar genome arrays in
+place.  Without a HALTPU_COLUMN_LIB override the library is built from
+that source at first use for the CPU this process runs on
+(hal_tpu_torch.ops._native_build), not loaded from the tracked
+native/libhalcolumn.so, which native/Makefile builds with -march=native;
+a failed build raises.  maybe_native_exporter returns None when the
+request needs --printTree gene trees or a scope genome has no DNA;
+callers then take the pure-Python path, the tested oracle.
 
-export_frags assembles in two calls: ce_plan_frags runs the block machine
-over the window's fragments without writing text and returns the text's
-exact size, then ce_write_frags writes each closed block once at its
-offset.  The block left open at the end is staged as the original stages
-it, for the next window or finish().  The bytes are the original's.
+Every call plans, then writes: the block machine records a call's blocks
+without writing text, each closed block is then written once at its
+offset in an exact-size buffer, and the block left open is staged for
+the next call or finish().  export and finish do both in one native
+call; export_frags, which assembles the device column engine's keyed
+fragments, makes them two (ce_plan_frags, ce_write_frags).  The bytes
+are the original's.
 
 NativeMafExporter records hal_tpu_torch.tracing spans: assembly.init
 (construction), assembly.close (freeing the handle), and export_frags's
@@ -21,17 +30,6 @@ which holds assembly.plan (ce_plan_frags) and assembly.write
 (ce_write_frags and the copy of its text); and the counters
 assembly.direct_cols (columns of blocks that closed in the window, written
 directly) and assembly.staged_cols (columns of the block left open).
-
-ctypes binding for the native exact hal2maf column engine.
-
-The engine is the C++ twin of iter_slices_exact + MafBlockBuilder — same
-run-hoisted DFS, same MAF entry state machine — reading the columnar genome
-arrays in place.  `maybe_native_exporter` returns None whenever the request
-needs a feature the native path does not carry (--printTree gene trees)
-or a scope genome has no DNA; callers then fall back to the pure-Python
-path, which remains the tested oracle.  --maxRefGap indel stacks and the
---global shared visit cache are native since round 5 (closing the 50x
-fallback cliff of VERDICT r4 missing #4).
 """
 
 from __future__ import annotations
@@ -103,8 +101,6 @@ def _load():
                                 ctypes.c_int64]
     lib.ce_set_ref.restype = None
     lib.ce_set_ref.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    lib.ce_read.restype = ctypes.c_int64
-    lib.ce_read.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
     lib.ce_data.restype = ctypes.c_void_p
     lib.ce_data.argtypes = [ctypes.c_void_p, _I64]
     lib.ce_consume.restype = None
@@ -226,8 +222,6 @@ class NativeMafExporter:
         resets; the shared visit cache persists across refs)."""
         self._lib.ce_set_ref(ctypes.c_void_p(self._h), self._gid[ref])
 
-    # ce_add_genome's long signature is declared lazily (ctypes infers
-    # int/pointer types from the call); set argtypes once for safety
     def _export_bytes(self, n: int) -> bytes:
         # single-copy drain: read the engine's buffer in place, consume
         ln = ctypes.c_int64(0)
@@ -244,7 +238,7 @@ class NativeMafExporter:
         device column engine's product, hal_tpu_torch.ops.column_torch): fragments
         are sorted host-side into global row precedence (genome name rank,
         sequence, DFS program ordinal, DFS key), planned through the same
-        native MAF entry machine ce_export drives, then written once —
+        native MAF entry machine ce_export drives, then written —
         byte-equal output.
 
         frags_by_target: {genome -> [(ordinal, _St), ...]}."""
@@ -317,6 +311,8 @@ class NativeMafExporter:
 
     def finish(self) -> bytes:
         n = self._lib.ce_finish(ctypes.c_void_p(self._h))
+        if n < 0:
+            raise RuntimeError("native column engine failed to finish")
         return self._export_bytes(int(n))
 
     def close(self):

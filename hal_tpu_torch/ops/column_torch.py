@@ -10,9 +10,13 @@ name, sequence, program ordinal, key).  The original's module docstring
 derives the program order and the keys.
 
 The host half is a copy of the original's (numpy only, imports pointing at
-hal_tpu_torch): ProgramSpec, ref_chain, build_programs, _RingCSR, _St,
-ColumnHostSim (the exact host twin that sizes the capacities),
-_target_frags_host, slices_from_frags and iter_slices_hostsim.
+hal_tpu_torch): ProgramSpec, ref_chain, build_programs, _St, ColumnHostSim
+(the exact host twin that sizes the capacities), _target_frags_host,
+slices_from_frags and iter_slices_hostsim.  One declared divergence: the
+twin reads its ring CSRs from a tables.RingTables (the original builds its
+own _RingCSR), and the engine's levels and split_plan read the same one,
+so each genome's CSR is built once a set-up; the twin's outputs stay
+equal to the original's.
 
 The device half is torch: build_levels and level_meta, _ring_expand_keyed
 (the ring expansion with DFS-key updates), _program_body (one program plus
@@ -141,26 +145,6 @@ def build_programs(aln: Alignment, ref: str, scope, scope_root,
 # device capacities, serves as the order-oracle in tests, and is itself a
 # complete (slow-ish) column engine for CPU-only callers.
 
-class _RingCSR:
-    """Per-genome ring CSR keyed by the SOURCE top segment (walk order of
-    TopSegmentIterator::toNextParalogy, members exclude the source)."""
-
-    def __init__(self, g):
-        from hal_tpu_torch.ops.tables import _build_ring_csr
-
-        if g.top_paralogy.shape[0] and (g.top_paralogy != NULL_INDEX).any():
-            self.rc, self.ro, self.rm, self.rf = _build_ring_csr(
-                g.top_paralogy, g.top_parent_reversed)
-            self.max_ring = int(self.rc.max()) + 1
-        else:
-            nt = g.num_top_segments
-            self.rc = np.zeros(nt, np.int64)
-            self.ro = np.zeros(nt, np.int64)
-            self.rm = np.zeros(0, np.int64)
-            self.rf = np.zeros(0, np.uint8)
-            self.max_ring = 0
-
-
 @dataclass
 class _St:
     """Fragment state: src interval + target interval + orientation + key."""
@@ -178,18 +162,13 @@ class _St:
 
 class ColumnHostSim:
     """Host twin: runs a ProgramSpec over a window, returning fragments
-    with DFS keys plus the per-level (split_total, ring_total) sizing."""
+    with DFS keys plus the per-level (split_total, ring_total) sizing.
+    self.rings holds the ring CSRs it reads."""
 
     def __init__(self, aln: Alignment):
         self.aln = aln
         self.tree = aln.tree
-        self._csr: dict = {}
-
-    def csr(self, name) -> _RingCSR:
-        r = self._csr.get(name)
-        if r is None:
-            r = self._csr[name] = _RingCSR(self.aln.open_genome(name))
-        return r
+        self.rings = tables.RingTables(aln)
 
     # -- level primitives ------------------------------------------------
     @staticmethod
@@ -228,7 +207,7 @@ class ColumnHostSim:
         """Ring expansion keyed by `seg` (walk order), member keys
         key*radix + (ordinal + member_base)."""
         g = self.aln.open_genome(genome_name)
-        csr = self.csr(genome_name)
+        csr = self.rings[genome_name]
         rc = csr.rc[seg]
         total = int(rc.sum())
         if total == 0:
@@ -253,9 +232,9 @@ class ColumnHostSim:
         if kind in ("up", "upc", "downnr"):
             return 1
         if kind == "selfring":
-            mr = self.csr(op[1]).max_ring
+            mr = self.rings[op[1]].max_ring
             return max(mr, 1)
-        mr = self.csr(op[2]).max_ring
+        mr = self.rings[op[2]].max_ring
         return mr + 2 if mr else 1
 
     def run(self, spec: ProgramSpec, gs: int, ge: int,
@@ -468,20 +447,23 @@ _KMAX = {np.dtype(np.int32): 2 ** 31, np.dtype(np.uint32): 2 ** 32,
          np.dtype(np.int64): 2 ** 62}
 
 
-def build_level(aln: Alignment, op, dtype, *, device) -> st.Level:
-    """The segmap_torch.Level of one program op."""
+def build_level(aln: Alignment, op, dtype, rings: tables.RingTables, *,
+                device) -> st.Level:
+    """The segmap_torch.Level of one program op, its rings from `rings`."""
     kind = op[0]
     if kind in ("up", "upc"):
         return st.build_up_level(aln, op[1], dtype,
                                  canonical_only=kind == "upc", device=device)
     if kind == "selfring":
-        return st.build_selfring_level(aln, op[1], dtype, device=device)
-    return st.build_down_level(aln, op[1], op[2], kind == "down", dtype,
+        return st.build_selfring_level(aln, op[1], rings, dtype,
+                                       device=device)
+    return st.build_down_level(aln, op[1], op[2],
+                               rings if kind == "down" else None, dtype,
                                device=device)
 
 
-def build_levels(aln: Alignment, spec: ProgramSpec, dtype, *, device,
-                 cache: dict):
+def build_levels(aln: Alignment, spec: ProgramSpec, dtype,
+                 rings: tables.RingTables, *, device, cache: dict):
     """segmap_torch.Level objects for one ProgramSpec.  `cache` maps an op
     to its Level, so each op's Level is built once and shared by every
     program that runs it (the JAX package builds one per program)."""
@@ -489,7 +471,8 @@ def build_levels(aln: Alignment, spec: ProgramSpec, dtype, *, device,
     for op in spec.ops:
         lv = cache.get(op)
         if lv is None:
-            lv = cache[op] = build_level(aln, op, dtype, device=device)
+            lv = cache[op] = build_level(aln, op, dtype, rings,
+                                         device=device)
         levels.append(lv)
     return tuple(levels)
 
@@ -655,7 +638,7 @@ def split_plan(aln: Alignment, sim: ColumnHostSim, programs,
             links[op] = ((cur, "bot_start"), link, (nxt, "top_start"))
             if kind == "down":
                 rings[op] = nxt
-    csrs = {n: sim.csr(n) for n in rings.values()}
+    csrs = {n: sim.rings[n] for n in rings.values()}
     starts = {k: getattr(aln.open_genome(k[0]), k[1]) for k in
               {k for src, _l, dst in links.values() for k in (src, dst)}
               | {(n, "top_start") for n in rings.values()}}
@@ -744,6 +727,7 @@ class DeviceColumnEngine:
                         % (ks, self.dtype.name, t, spec.ordinal))
                 self.jobs.append((t, spec,
                                   build_levels(aln, spec, self.dtype,
+                                               self.sim.rings,
                                                device=self.device,
                                                cache=self.levels),
                                   level_meta(self.sim, spec)))

@@ -192,9 +192,9 @@ class DepthEngine:
         self.gs, self.ge = int(gs), int(ge)
         self.count_dupes = count_dupes
         tree = aln.tree
-        # per-alignment caches: PathData tables and the host-sim ring CSRs
-        # are WINDOW-INDEPENDENT — the halAlignmentDepth tool constructs
-        # one engine per window
+        # per-alignment caches: PathData tables and the ring CSRs (the
+        # host sim's, which the tables read too) are WINDOW-INDEPENDENT —
+        # the halAlignmentDepth tool constructs one engine per window
         caches = getattr(aln, "_depth_caches", None)
         if caches is None:
             caches = aln._depth_caches = {
@@ -226,7 +226,7 @@ class DepthEngine:
             if path is None:
                 path = path_cache[pkey] = st.PathData.build(
                     aln, ref, g, do_dupes=True, coalescence_limit=limit,
-                    device=self.device)
+                    device=self.device, rings=sim.rings)
             totals, _final = tables.host_path_totals(
                 aln, ref, g, [gs], [ge], do_dupes=True,
                 coalescence_limit=limit, sim=sim)

@@ -212,13 +212,15 @@ def bulk_runs_device(aln: Alignment, src: str, tgt: str, lo, hi, tg,
     max_len = int((hi - lo).max()) if len(lo) else 0
     if max_len > 255:
         return None
-    path = st.PathData.build(aln, src, tgt, do_dupes=do_dupes, device=device)
+    sim = tables._HostSim(aln, do_dupes)
+    path = st.PathData.build(aln, src, tgt, do_dupes=do_dupes, device=device,
+                             rings=sim.rings)
     if path.coord_kind == "int64":
         return None
     if path.para:
         return None  # branch caps need map_batch's retry loop
     totals, final = tables.host_path_totals(aln, src, tgt, lo, hi,
-                                            do_dupes=do_dupes)
+                                            do_dupes=do_dupes, sim=sim)
     caps = tables.caps_from_totals(path, totals)
     lo_d = st.coords(path, lo)
     hi_d = st.coords(path, hi)

@@ -144,9 +144,12 @@ class PathData:
     def build(cls, aln: Alignment, src: str, tgt: str, do_dupes: bool = True,
               dtype=None, coalescence_limit: str | None = None,
               min_length: int = 0, host_paralogies: bool = False, *,
-              device) -> "PathData":
+              device, rings: tables.RingTables | None = None) -> "PathData":
         """dtype: the JAX package's coordinate dtype as numpy (np.int32,
         np.uint32 or np.int64); by default picked as segmap_jax does.
+
+        rings: the caller's RingTables of `aln`, which every down level of
+        the path, main and branch, reads; by default one of its own.
 
         host_paralogies: paralogy branch k expands rings only at its first
         down level (the paralogs of chain[k - 1]) and brings them down to
@@ -179,8 +182,13 @@ class PathData:
         def up_level(cur: str) -> Level:
             return build_up_level(aln, cur, dtype, device=device)
 
-        def down_level(cur: str, nxt: str, rings: bool) -> Level:
-            return build_down_level(aln, cur, nxt, rings, dtype, device=device)
+        if rings is None:
+            rings = tables.RingTables(aln)
+
+        def down_level(cur: str, nxt: str, with_rings: bool) -> Level:
+            return build_down_level(aln, cur, nxt,
+                                    rings if with_rings else None, dtype,
+                                    device=device)
 
         levels = []
         cur = src
@@ -258,72 +266,60 @@ def build_up_level(aln: Alignment, cur: str, dtype,
         tables._pack4(np_dtype, np.zeros(0, np.int64)), 0, pt, ps, device)
 
 
-def build_down_level(aln: Alignment, cur: str, nxt: str, rings: bool,
-                     dtype, *, device) -> Level:
+def _ring_mem_tab(np_dtype, top_start, ring: tables.RingCSR):
+    """The packed [start, next, flip] of each ring member."""
+    mem = ring.rm
+    return tables._pack4(np_dtype,
+                         top_start[mem] if len(mem) else mem,
+                         top_start[mem + 1] if len(mem) else mem,
+                         ring.rf.astype(np.int64))
+
+
+def build_down_level(aln: Alignment, cur: str, nxt: str,
+                     rings: tables.RingTables | None, dtype, *,
+                     device) -> Level:
+    """rings: where `nxt`'s paralogy rings come from; None expands none."""
     g = aln.open_genome(cur)
     cg = aln.open_genome(nxt)
     slot = aln.tree.child_index(cur, nxt)
     n_seg = g.num_bottom_segments
     nd = cg.num_top_segments
     np_dtype = tables._np_dtype_of(dtype)
-    max_ring = 0
-    rc = np.zeros(nd, np.int64)
-    ro = np.zeros(nd, np.int64)
-    rm = np.zeros(0, np.int64)
-    rf = np.zeros(0, np.uint8)
-    if rings and (cg.top_paralogy != NULL_INDEX).any():
-        rc, ro, rm, rf = tables._build_ring_csr(cg.top_paralogy,
-                                                cg.top_parent_reversed)
-        max_ring = int(rc.max()) + 1
+    ring = rings[nxt] if rings is not None else tables.RingCSR.empty(nd)
     link = (g.bot_child[:n_seg, slot] if n_seg
             else np.zeros(0, np.int64))
     lrev = (g.bot_child_reversed[:n_seg, slot].astype(np.int64)
             if n_seg else np.zeros(0, np.int64))
-    mem = rm.astype(np.int64)
     pt, ps = _pages(g.bot_start)
     return _level(
         "down", np.asarray(g.bot_start).astype(np_dtype),
         tables._seg_tab(np_dtype, g.bot_start, link, lrev,
-                        cg.top_start[:nd], rc[:nd], ro[:nd]),
-        tables._pack4(np_dtype,
-                      cg.top_start[mem] if len(mem) else mem,
-                      cg.top_start[mem + 1] if len(mem) else mem,
-                      rf.astype(np.int64)),
-        max_ring, pt, ps, device)
+                        cg.top_start[:nd], ring.rc[:nd], ring.ro[:nd]),
+        _ring_mem_tab(np_dtype, cg.top_start, ring),
+        ring.max_ring, pt, ps, device)
 
 
-def build_selfring_level(aln: Alignment, cur: str, dtype, *,
+def build_selfring_level(aln: Alignment, cur: str,
+                         rings: tables.RingTables, dtype, *,
                          device) -> Level:
     """Self-ring level of the column engine (ops.column_torch): split
     fragments at `cur`'s TOP grid, identity link (dst = own segment), ring
-    CSR keyed by the fragment's OWN top segment — the reference's
-    toNextParalogy walk from the segment itself (halColumnIterator.cpp:
-    642-682 updateNextTopDup).  The caller drops the pass-through base
-    fragments after the expansion (members only)."""
+    CSR (rings[cur]) keyed by the fragment's OWN top segment — the
+    reference's toNextParalogy walk from the segment itself
+    (halColumnIterator.cpp:642-682 updateNextTopDup).  The caller drops
+    the pass-through base fragments after the expansion (members only)."""
     g = aln.open_genome(cur)
     nt = g.num_top_segments
     np_dtype = tables._np_dtype_of(dtype)
-    rc = np.zeros(nt, np.int64)
-    ro = np.zeros(nt, np.int64)
-    rm = np.zeros(0, np.int64)
-    rf = np.zeros(0, np.uint8)
-    max_ring = 0
-    if g.top_paralogy.shape[0] and (g.top_paralogy != NULL_INDEX).any():
-        rc, ro, rm, rf = tables._build_ring_csr(g.top_paralogy,
-                                                g.top_parent_reversed)
-        max_ring = int(rc.max()) + 1
-    mem = rm.astype(np.int64)
+    ring = rings[cur]
     pt, ps = _pages(g.top_start)
     return _level(
         "down", np.asarray(g.top_start).astype(np_dtype),
         tables._seg_tab(np_dtype, g.top_start, np.arange(nt, dtype=np.int64),
-                        np.zeros(nt, np.int64), g.top_start[:nt], rc[:nt],
-                        ro[:nt]),
-        tables._pack4(np_dtype,
-                      g.top_start[mem] if len(mem) else mem,
-                      g.top_start[mem + 1] if len(mem) else mem,
-                      rf.astype(np.int64)),
-        max_ring, pt, ps, device)
+                        np.zeros(nt, np.int64), g.top_start[:nt],
+                        ring.rc[:nt], ring.ro[:nt]),
+        _ring_mem_tab(np_dtype, g.top_start, ring),
+        ring.max_ring, pt, ps, device)
 
 
 # --------------------------------------------------------------------------

@@ -5,11 +5,21 @@ Verbatim copies of the host-side functions of hal_tpu.ops.segmap_jax
 wire decode).  The originals cannot be imported without jax — importing
 segmap_jax turns on jax_enable_x64 for the whole process — so the port
 carries these copies, and tests/test_torch_tables.py holds each one equal
-to its original.  The only edits: _np_dtype_of takes numpy dtypes and
-_pack4 returns a numpy array instead of a jax one.
+to its original.  The edits: _np_dtype_of takes numpy dtypes, _pack4
+returns a numpy array instead of a jax one, and _HostSim reads its ring
+CSRs from a RingTables (a declared divergence; its totals stay equal to
+the original's).
+
+RingTables is the port's one owner of each genome's ring CSR (RingCSR,
+built by _build_ring_csr): the column engine's host twin and levels, the
+segment mapper's down and self-ring levels and the depth sizer all read
+one RingTables for the life of a set-up, so each genome's CSR is built
+once.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -71,6 +81,48 @@ def _build_ring_csr(ring: np.ndarray, reversed_: np.ndarray):
         counts[i] = c
     return (counts, offsets, np.asarray(members, np.int64),
             np.asarray(flips, np.uint8))
+
+
+@dataclass(frozen=True)
+class RingCSR:
+    """A genome's ring CSR keyed by the SOURCE top segment (walk order of
+    TopSegmentIterator::toNextParalogy, members exclude the source): each
+    top segment's member count and offset, then the members and their
+    orientation-flip bits.  max_ring is one more than the largest count,
+    and 0 where the genome has no paralogy ring."""
+
+    rc: np.ndarray
+    ro: np.ndarray
+    rm: np.ndarray
+    rf: np.ndarray
+    max_ring: int
+
+    @classmethod
+    def empty(cls, n_top: int) -> "RingCSR":
+        """No ring: every count 0, no members."""
+        return cls(np.zeros(n_top, np.int64), np.zeros(n_top, np.int64),
+                   np.zeros(0, np.int64), np.zeros(0, np.uint8), 0)
+
+
+class RingTables:
+    """Each genome's RingCSR by name, built at most once."""
+
+    def __init__(self, aln: Alignment):
+        self.aln = aln
+        self._csr: dict = {}
+
+    def __getitem__(self, name: str) -> RingCSR:
+        r = self._csr.get(name)
+        if r is None:
+            g = self.aln.open_genome(name)
+            if (g.top_paralogy != NULL_INDEX).any():
+                rc, ro, rm, rf = _build_ring_csr(g.top_paralogy,
+                                                 g.top_parent_reversed)
+                r = RingCSR(rc, ro, rm, rf, int(rc.max()) + 1)
+            else:
+                r = RingCSR.empty(g.num_top_segments)
+            self._csr[name] = r
+        return r
 
 
 def _np_dtype_of(dtype):
@@ -184,29 +236,27 @@ class _HostSim:
     """Host twin of _run_path's split/hop/ring algebra (numpy, exact).
 
     Sizes device capacities without a device sizing pass; also yields the
-    exact final row count for static-output compaction.  Ring CSR tables
-    are cached per child genome so multi-path sizing (depth over a whole
-    scope) builds each at most once."""
+    exact final row count for static-output compaction.  The ring CSRs
+    come from self.rings (a RingTables; the original caches its own), so
+    multi-path sizing (depth over a whole scope) and the path tables built
+    beside it build each at most once."""
 
     def __init__(self, aln: Alignment, do_dupes: bool = True):
         self.aln = aln
         self.tree = aln.tree
         self.do_dupes = do_dupes
-        self._csr: dict = {}
+        self.rings = RingTables(aln)
 
     def _rings(self, child_name: str):
-        r = self._csr.get(child_name)
-        if r is None:
-            cg = self.aln.open_genome(child_name)
-            if (self.do_dupes and cg.top_paralogy.size
-                    and (cg.top_paralogy != NULL_INDEX).any()):
-                rc, ro, rm, rf = _build_ring_csr(cg.top_paralogy,
-                                                 cg.top_parent_reversed)
-                r = (rc, ro, rm, rf, cg.top_start)
-            else:
-                r = False
-            self._csr[child_name] = r
-        return r
+        """(rc, ro, rm, rf, top_start) of the child's rings, or None when
+        do_dupes is off or the child has no ring."""
+        if not self.do_dupes:
+            return None
+        r = self.rings[child_name]
+        if not r.max_ring:
+            return None
+        return (r.rc, r.ro, r.rm, r.rf,
+                self.aln.open_genome(child_name).top_start)
 
     def level(self, cur: str, nxt: str, t_lo, t_hi, rings: bool):
         """Apply one level; returns (t_lo', t_hi', split_total, ring_total)."""
@@ -228,7 +278,7 @@ class _HostSim:
                     if g.num_bottom_segments else np.zeros(0, np.int64))
             dst = ng.top_start
             if rings:
-                ring_count = self._rings(nxt) or None
+                ring_count = self._rings(nxt)
         i0 = np.searchsorted(starts, t_lo, side="right") - 1
         i1 = np.searchsorted(starts, t_hi - 1, side="right") - 1
         counts = np.maximum(i1 - i0 + 1, 0) * (t_hi > t_lo)

@@ -18,6 +18,7 @@ from hal_tpu.storage import save_alignment
 from hal_tpu_torch.io.maf_io import MafBlockBuilder
 from hal_tpu_torch.ops import column_torch as ct
 from hal_tpu_torch.ops import segmap_torch as st
+from hal_tpu_torch.ops import tables
 from hal_tpu_torch.ops.column import compute_scope
 from hal_tpu_torch.randgen import create_random_alignment
 
@@ -74,7 +75,8 @@ def test_build_selfring_level_equals_jax(dtype):
     for name in port.genome_names():
         if not port.open_genome(name).num_top_segments:
             continue
-        got = st.build_selfring_level(port, name, dtype, device="cpu")
+        got = st.build_selfring_level(port, name, tables.RingTables(port),
+                                      dtype, device="cpu")
         want = sj.build_selfring_level(ref_aln, name, dtype)
         assert got.kind == want.kind == "down"
         assert got.max_ring == want.max_ring
@@ -88,14 +90,37 @@ def test_build_selfring_level_equals_jax(dtype):
     assert n_rings, "fixture must carry paralogy rings"
 
 
-def test_engine_builds_each_level_once():
+def count_ring_builds(monkeypatch, aln) -> list:
+    """The names of the genomes whose ring CSR tables._build_ring_csr
+    builds from now on, one entry a call."""
+    built = []
+    build = tables._build_ring_csr
+
+    def counting(ring, reversed_):
+        built.append(next(n for n in aln.genome_names()
+                          if aln.open_genome(n).top_paralogy is ring))
+        return build(ring, reversed_)
+
+    monkeypatch.setattr(tables, "_build_ring_csr", counting)
+    return built
+
+
+def test_engine_builds_each_level_once(monkeypatch):
+    """Each op's Level is built once, and each genome's ring CSR once: the
+    host twin, the down and self-ring levels and split_plan share it."""
     port, _ = _alns(42)
     ref = _refs(port)[0]
+    built = count_ring_builds(monkeypatch, port)
     eng = ct.DeviceColumnEngine(port, ref, device="cpu")
     ops = {op for _t, spec, _lv, _m in eng.jobs for op in spec.ops}
     assert set(eng.levels) == ops
     for _t, spec, levels, _m in eng.jobs:
         assert all(lv is eng.levels[op] for op, lv in zip(spec.ops, levels))
+    read = ({op[1] for op in ops if op[0] == "selfring"}
+            | {op[2] for op in ops if op[0] == "down"})
+    ringed = {n for n in read
+              if (port.open_genome(n).top_paralogy != -1).any()}
+    assert ringed and sorted(built) == sorted(ringed)
 
 
 # ----------------------------------------------------------- programs
@@ -393,9 +418,9 @@ def halz(tmp_path_factory):
 @pytest.mark.parametrize("flags", [
     [], ["--noDupes"], ["--noAncestors"], ["--onlyOrthologs"],
     ["--targets"], ["--refSequence"], ["--maxRefGap", "4"], ["--unique"],
-    ["--maxBlockLen", "7"]],
+    ["--maxBlockLen", "7"], ["--global"]],
     ids=["default", "noDupes", "noAncestors", "onlyOrthologs", "targets",
-         "refSequence", "maxRefGap", "unique", "maxBlockLen"])
+         "refSequence", "maxRefGap", "unique", "maxBlockLen", "global"])
 def test_hal2maf_cli_equals_jax(halz, flags, capsys):
     """The port's hal2maf --device cpu bytes equal hal_tpu's hal2maf with
     --device (its column engine) and without (the native DFS engine); flags
@@ -423,7 +448,7 @@ def test_hal2maf_cli_equals_jax(halz, flags, capsys):
         errs.append(capsys.readouterr().err)
     assert outs[0] and outs[0] == outs[1] == outs[2]
     assert errs[0] == errs[1]
-    host = bool({"--maxRefGap", "--unique"} & set(flags))
+    host = bool({"--maxRefGap", "--unique", "--global"} & set(flags))
     assert ("engine=device" in errs[0]) != host
     assert ("does not cover this flag set" in errs[0]) == host
 

@@ -75,6 +75,29 @@ def test_depth_engine_equals_jax(alns, count_dupes, window):
         assert cols3 == cols and np.array_equal(got, want)
 
 
+def test_depth_engines_build_each_ring_csr_once(monkeypatch):
+    """DepthEngines over two windows of one alignment, with a scope root
+    above the MRCA (paralogy branches): the sizer and every path's down
+    levels, main and branch, read one ring CSR a genome, built once; the
+    counts equal the JAX package's."""
+    from test_torch_column import count_ring_builds
+
+    port = create_random_alignment(**FIXTURE)
+    ref_aln = jax_random_alignment(**FIXTURE)
+    ref = [n for n in port.genome_names() if port.tree.is_leaf(n)][0]
+    scope, root = compute_scope(port, ref)
+    assert any(port.tree.lca(ref, g) != root for g in scope)
+    built = count_ring_builds(monkeypatch, port)
+    ge = int(port.open_genome(ref).length)
+    for gs, we in ((0, ge // 2), (ge // 2, ge)):
+        got = depth.DepthEngine(port, ref, gs, we, scope, root,
+                                device="cpu").run()[0]
+        want = jax_depth.DepthEngine(ref_aln, ref, gs, we, scope,
+                                     root).run()[0]
+        assert np.array_equal(got, want)
+    assert built and sorted(built) == sorted(set(built))
+
+
 def test_depth_engine_no_ancestors_equals_jax(alns):
     port, ref_aln = alns
     ref = [n for n in port.genome_names() if port.tree.is_leaf(n)][-1]

@@ -339,12 +339,15 @@ def test_wiggle_io_equals_original():
 
 
 @pytest.mark.parametrize("opts", [{}, dict(max_ref_gap=4), dict(unique=True),
-                                  dict(no_dupes=True, max_block_len=7)],
-                         ids=["default", "maxRefGap", "unique", "noDupes"])
+                                  dict(no_dupes=True, max_block_len=7),
+                                  dict(shared_visit={})],
+                         ids=["default", "maxRefGap", "unique", "noDupes",
+                              "global"])
 def test_native_column_exporter_equals_original(opts):
     """ops.column_native's NativeMafExporter (export, finish, and
     export_frags from the host twin's keyed fragments) emits the original
-    binding's bytes."""
+    binding's bytes; under --global (shared_visit) two leaves in turn
+    through set_ref, each exported whole, as hal2maf --global does."""
     from hal_tpu.ops import column_native as jax_cn
     from hal_tpu_torch.ops import column_native as port_cn
     from hal_tpu_torch.ops import column_torch as ct
@@ -357,9 +360,21 @@ def test_native_column_exporter_equals_original(opts):
     ge = int(port.open_genome(ref).length)
     ex = port_cn.maybe_native_exporter(port, ref, **opts)
     jex = jax_cn.maybe_native_exporter(ref_aln, ref, **opts)
-    got = ex.export(0, ge // 2) + ex.export(ge // 2, ge) + ex.finish()
-    want = jex.export(0, ge // 2) + jex.export(ge // 2, ge) + jex.finish()
-    assert got == want and got
+    if "shared_visit" in opts:
+        got, want = [], []
+        for leaf in [n for n in sorted(port.genome_names())
+                     if port.tree.is_leaf(n)][:2]:
+            n = int(port.open_genome(leaf).length)
+            ex.set_ref(leaf)
+            jex.set_ref(leaf)
+            got.append(ex.export(0, n) + ex.finish())
+            want.append(jex.export(0, n) + jex.finish())
+        assert got == want and all(got)
+    else:
+        got = ex.export(0, ge // 2) + ex.export(ge // 2, ge) + ex.finish()
+        want = jex.export(0, ge // 2) + jex.export(ge // 2, ge) + \
+            jex.finish()
+        assert got == want and got
     if not opts:
         frags = ct._target_frags_host(
             ct.ColumnHostSim(port),

@@ -343,6 +343,20 @@ for kw in ({}, dict(keep_empty_ref_blocks=False), dict(max_block_len=7)):
                    for a, b in zip(edges, edges[1:])) + ex.finish()
     assert out
     ex.close()
+for kw in ({}, dict(max_ref_gap=4), dict(unique=True)):
+    ex = cn.NativeMafExporter(aln, ref, **kw)
+    out = b"".join(ex.export(a, b)
+                   for a, b in zip(edges, edges[1:])) + ex.finish()
+    assert out
+    ex.close()
+ex = cn.NativeMafExporter(aln, ref, global_mode=True)
+leaves = [n for n in sorted(aln.genome_names()) if aln.tree.is_leaf(n)]
+out = b""
+for leaf in leaves[:2]:
+    ex.set_ref(leaf)
+    out += ex.export(0, int(aln.open_genome(leaf).length)) + ex.finish()
+assert out
+ex.close()
 print("PORT-COLUMN-ASAN-OK")
 """ % LONG
 
@@ -351,7 +365,10 @@ def test_export_frags_under_asan(tmp_path):
     """The port's engine copy built with AddressSanitizer and UBSan, its
     fragment assembler driven over three windows through one exporter
     (blocks left open across calls), without empty reference blocks and
-    at --maxBlockLen 7: an access outside the planned offsets aborts."""
+    at --maxBlockLen 7, then its host DFS path (export over the same three
+    windows, then finish) with the defaults, --maxRefGap 4 and --unique,
+    and --global over two leaves through set_ref: an access outside the
+    planned offsets aborts."""
     import os
     import shutil
     import subprocess
